@@ -1,0 +1,241 @@
+"""The batched chain in PyTorch: pack + pipeline + the ``Engine``.
+
+``Engine`` runs B parallel streams of one device config on one card.  It
+mirrors the JAX package's ``Engine`` (chain/__init__.py) for the RP2350
+float chain at 48 and 96 kHz on the block-matmul lowering; everything else
+is refused with NotImplementedError naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..core import constants as C
+from ..params.design import derive
+from ..params.types import DeviceConfig
+from .mxu import build_blocks
+from .pack import (ChainParams, ChainState, StaticChain, build_params,
+                   build_params_multi, build_static, from_numpy,
+                   init_state, to_device, to_numpy)
+from .pipeline import process_float, refuse
+
+__all__ = ["Engine", "StaticChain", "ChainParams", "ChainState",
+           "build_static", "build_params", "build_params_multi",
+           "init_state", "packet_geometry", "process_float", "from_numpy",
+           "to_numpy", "to_device"]
+
+
+def packet_geometry(sample_rate, n_packets: int = 10):
+    """USB packet geometry for a sample rate: one isochronous packet per
+    millisecond, 48/96 samples at 48/96 kHz (current_architecture.md:1092).
+    Returns ``(block_size, schedule)`` with ``schedule=None``.  44.1 kHz
+    (the 44/45 cadence) is refused."""
+    rate = int(sample_rate)
+    if rate == 44100:
+        raise NotImplementedError(
+            "variable-packet schedules (44.1 kHz) are not ported yet: "
+            "ROADMAP.md section 1, item 8")
+    if rate not in (48000, 96000):
+        raise ValueError(f"unsupported sample rate {sample_rate}")
+    return rate // 1000, None
+
+
+def _device(device) -> torch.device:
+    """``None`` means the card; a CUDA device that is not there raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the engine runs on the card unless the caller "
+            "passes device='cpu'")
+    return dev
+
+
+class Engine:
+    """Stateful wrapper: one device config, B parallel streams, one device.
+
+    >>> eng = Engine(DeviceConfig(), n_streams=1024)
+    >>> out = eng.process(x)        # x: int32 [n_packets, 2, block, B]
+    """
+
+    def __init__(self, cfg: DeviceConfig, n_streams: int, block_size: int = 48,
+                 bit_depth: int = 16, emit: str = "full", pdm: bool = True,
+                 pdm_fade: bool = True, pdm_seed=C.PDM_RNG_SEED,
+                 schedule=None, mxu: bool = True, wire: bool = False,
+                 device=None):
+        """``device``: where the chain runs; None means "cuda", and raises
+        when no CUDA device is present.  ``schedule``, ``mxu=False`` and
+        ``wire=True`` are refused (not ported yet), as is the RP2040
+        platform."""
+        self.device = _device(device)
+        self.cfg = cfg
+        self.n_streams = n_streams
+        self._rate = float(cfg.sample_rate)
+        self._pdm_out_on = bool(pdm and cfg.outputs[-1].enabled)
+        self.derived = derive(cfg)
+        self.static = build_static(self.derived, block_size=block_size,
+                                   bit_depth=bit_depth, emit=emit, pdm=pdm,
+                                   schedule=schedule, mxu=mxu, wire=wire)
+        refuse(self.static)
+        self.params = to_device(build_params(self.derived, self.static),
+                                self.device)
+        self.blocks = build_blocks(self.static, self.params, self.device)
+        self.state = to_device(
+            init_state(self.static, n_streams, pdm_seed=pdm_seed,
+                       pdm_fade=pdm_fade), self.device)
+
+    # -- running ----------------------------------------------------------
+    def process(self, x, preset_mute=None):
+        """x: int32 [n_packets, 2, block_size, B] (tensor or array) ->
+        output dict of tensors on the engine's device."""
+        x = torch.as_tensor(x, device=self.device)
+        if preset_mute is not None:
+            preset_mute = torch.as_tensor(preset_mute, dtype=torch.float32,
+                                          device=self.device)
+        self.state, out = process_float(self.static, self.params, self.state,
+                                        x, preset_mute, blocks=self.blocks)
+        return out
+
+    @property
+    def segment_fn(self):
+        """``(params, state, x, preset_mute) -> (state', out)`` for the
+        CURRENT static and block matrices (which belong to
+        ``self.params``)."""
+        return functools.partial(process_float, self.static,
+                                 blocks=self.blocks)
+
+    def load_params_state(self, params, state) -> None:
+        """Take params and state as NumPy trees (what the JAX package's
+        ``build_params``/``init_state`` return, or ``np.asarray`` of its
+        engine's), so both packages can run from the same numbers."""
+        self.params, self.state = from_numpy(params, state, self.device)
+        self.blocks = build_blocks(self.static, self.params, self.device)
+
+    # -- control ----------------------------------------------------------
+    def update_config(self, cfg: DeviceConfig, preset_load: bool = False,
+                      bit_depth: int | None = None):
+        """Apply a new config with the firmware's state-reset semantics
+        (main.c:826-976), as the JAX package's ``Engine.update_config``:
+
+          * per-band SVF<->biquad path flips zero that band's state
+          * any crossfeed change clears its filter state
+          * leveller enable / lookahead toggles reset the leveller
+          * preset load zeroes the delay lines and resets the leveller
+          * a 48 <-> 96 kHz rate change recomputes every coefficient and
+            re-packetizes (callers re-frame their segments); filter state
+            persists
+          * ``bit_depth`` (16|24, None = keep) changes only the unpack
+          * a sub-output enable flip sets ``pdm_ena``: the modulator fades
+            out, stops, restarts (pdm_generator.c:217-252); the stage is
+            kept across a runtime disable so the fade-out runs
+        """
+        old_cfg, old_d, old_static = self.cfg, self.derived, self.static
+        block_size = old_static.block_size
+        if float(cfg.sample_rate) != self._rate:
+            block_size, _ = packet_geometry(cfg.sample_rate)
+        new_d = derive(cfg)
+        new_static = build_static(
+            new_d, block_size=block_size,
+            bit_depth=(old_static.bit_depth if bit_depth is None
+                       else int(bit_depth)), emit=old_static.emit,
+            pdm=old_static.pdm_on or cfg.outputs[-1].enabled,
+            mxu=old_static.mxu, pdm_keep=old_static.pdm_on)
+        refuse(new_static)
+        self.cfg, self.derived = cfg, new_d
+        self._rate = float(cfg.sample_rate)
+        if new_static != old_static:
+            self.static = new_static
+            self.state = self._migrate_state(self.state, new_static)
+        self.params = to_device(build_params(self.derived, self.static),
+                                self.device)
+        self.blocks = build_blocks(self.static, self.params, self.device)
+
+        st = self.state
+        # SVF<->biquad path flips
+        flips = [(ch, b) for ch in range(cfg.num_channels)
+                 for b in range(min(len(old_d.eq[ch]),
+                                    len(self.derived.eq[ch])))
+                 if old_d.eq[ch][b].use_svf != self.derived.eq[ch][b].use_svf
+                 and not self.derived.eq[ch][b].bypass]
+        if flips:
+            arrs = {f: getattr(st, f).clone()
+                    for f in ("eq_a", "eq_b", "eq_c", "eq_d")}
+            for ch, b in flips:
+                for arr in arrs.values():
+                    arr[ch, b] = 0
+            st = st._replace(**arrs)
+        if dataclasses.asdict(old_cfg.crossfeed) != \
+                dataclasses.asdict(cfg.crossfeed):
+            st = st._replace(xf_lp=torch.zeros_like(st.xf_lp),
+                             xf_ap=torch.zeros_like(st.xf_ap))
+        lev_reset = (preset_load
+                     or (cfg.leveller.enabled and not old_cfg.leveller.enabled)
+                     or cfg.leveller.lookahead != old_cfg.leveller.lookahead)
+        if lev_reset:
+            st = self._reset_leveller(st)
+        if preset_load and st.delay is not None:
+            st = st._replace(delay=torch.zeros_like(st.delay))
+        new_pdm_out = bool(cfg.outputs[-1].enabled)
+        if (self.static.pdm_on and st.pdm_ena is not None
+                and new_pdm_out != self._pdm_out_on):
+            st = st._replace(pdm_ena=torch.full_like(st.pdm_ena,
+                                                     int(new_pdm_out)))
+        self._pdm_out_on = new_pdm_out
+        self.state = st
+
+    def _reset_leveller(self, st):
+        """leveller_reset_state (leveller.c:95-105)."""
+        one = torch.ones_like(st.lev_gain)
+        return st._replace(
+            lev_env=torch.zeros_like(st.lev_env),
+            lev_gain_db=torch.zeros_like(st.lev_gain_db),
+            lev_gain=one, lev_gain_prev=one.clone(),
+            lev_la=None if st.lev_la is None else torch.zeros_like(st.lev_la))
+
+    def _migrate_state(self, st: ChainState, new) -> ChainState:
+        """Carry state across a structural change; buffers whose shape
+        changed (delay rings, lookahead) start fresh."""
+        fresh = to_device(init_state(new, self.n_streams), self.device)
+        updates = {}
+        for f in st._fields:
+            ov, nv = getattr(st, f), getattr(fresh, f)
+            if ov is None or nv is None or ov.shape != nv.shape:
+                updates[f] = nv
+            else:
+                updates[f] = ov
+        return ChainState(**updates)
+
+    # -- checkpoint / resume of runtime state ------------------------------
+    def save_state(self, path: str) -> None:
+        """Snapshot all per-stream runtime state to an .npz file (the JAX
+        package's layout: ``pdm_rng`` as uint32)."""
+        arrays = {f: v for f, v in zip(ChainState._fields,
+                                       to_numpy(self.state)) if v is not None}
+        np.savez_compressed(path, **arrays)
+
+    def load_state(self, path: str) -> None:
+        with np.load(path) as data:
+            # checkpoints from before the rings were time-ordered stored a
+            # circular ring and its index; only index 0 loads as is
+            for legacy in ("delay_idx", "lev_la_idx"):
+                if legacy in data.files and int(data[legacy]) != 0:
+                    raise ValueError(
+                        f"checkpoint {path} holds a circular ring at offset "
+                        f"{int(data[legacy])} ({legacy}); re-save it")
+            cur = to_numpy(self.state)
+            updates = {}
+            for f in ChainState._fields:
+                have = getattr(cur, f)
+                if f in data.files:
+                    loaded = data[f]
+                    if have is not None and have.shape != loaded.shape:
+                        raise ValueError(
+                            f"state field {f}: shape {loaded.shape} != "
+                            f"{have.shape}")
+                    updates[f] = loaded
+                else:
+                    updates[f] = have
+        self.state = to_device(ChainState(**updates), self.device)

@@ -1,0 +1,398 @@
+"""The batched float pipeline: PASS 1-5 of process_audio_packet in PyTorch.
+
+One call processes a *segment* of ``n_packets`` emulated USB packets of
+``block_size`` samples for ``B`` independent streams at once:
+
+    x: int32 [n_packets, 2, block_size, B]  ->  outputs [..., B]
+
+This is the JAX package's ``_process_float`` (chain/pipeline.py) on its
+block-matmul branches: the LTI passes (loudness + master EQ, crossfeed +
+matrix + per-output EQ) run as per-packet block matrices (chain/mxu.py),
+the leveller envelope as a weighted block reduction, and the rest as
+whole-segment tensor ops.  The leveller's packet-rate gain smoothing is a
+Python loop over packets; the PDM modulator is the CUDA kernel
+(kernels/pdm_cuda.py).
+
+  PASS 1  unpack + preamp + loudness shelves    usb_audio.c:590-718
+  PASS 2  master EQ block                       dsp_pipeline.c:282-365
+  PASS 2.5 leveller                             leveller.c:147-262
+  PASS 3  crossfeed + master peaks              usb_audio.c:737-749
+  PASS 4  matrix mix                            usb_audio.c:751-779
+  PASS 5  per-output EQ/gain/delay/convert      usb_audio.c:873-959
+
+The float path is ulp-faithful, not bit-frozen: matrix products re-round
+what the firmware computes sequentially, so it is held to <= 1e-6
+relative RMS against the firmware-semantics golden model.
+
+Refused here, each naming its ROADMAP.md item: the RP2040 Q28 chain, the
+scan lowering (``mxu=False``), variable-packet schedules and the
+device-side wire stage.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import constants as C
+from ..core import fmath
+from ..core.qmath import f32_to_i32
+from ..kernels.pdm_cuda import pdm_segment
+from .pack import SKIP, SVF_HP, SVF_LP, SVF_PEAK, TDF2, StaticChain
+
+_F32 = torch.float32
+_INV20 = float(np.float32(1.0) / np.float32(20.0))
+
+
+# ----------------------------------------------------------------------------
+# per-band sample steps (used to build the block matrices)
+# ----------------------------------------------------------------------------
+
+
+def _band_step_f32(kind: int, cf, s, xin):
+    """One band, one sample, float path (dsp_pipeline.c:298-364).
+
+    cf: [11] coefficient row; s: (a, b) state pair; returns (out, s')."""
+    if kind == TDF2:
+        b0, b1, b2, a1, a2 = cf[6], cf[7], cf[8], cf[9], cf[10]
+        s1, s2 = s
+        out = b0 * xin + s1
+        s1n = b1 * xin - a1 * out + s2
+        s2n = b2 * xin - a2 * out
+        return out, (s1n, s2n)
+    a1, a2, a3 = cf[0], cf[1], cf[2]
+    m0, m1, m2 = cf[3], cf[4], cf[5]
+    ic1, ic2 = s
+    v3 = xin - ic2
+    v1 = a1 * ic1 + a2 * v3
+    v2 = ic2 + a2 * ic1 + a3 * v3
+    ic1n = 2.0 * v1 - ic1
+    ic2n = 2.0 * v2 - ic2
+    if kind == SVF_LP:
+        out = v2
+    elif kind == SVF_HP:
+        out = xin + m1 * v1 - v2
+    elif kind == SVF_PEAK:
+        out = xin + m1 * v1
+    else:
+        out = m0 * xin + m1 * v1 + m2 * v2
+    return out, (ic1n, ic2n)
+
+
+def _svf_general_f32(cf_row, s, xin, bypass):
+    """Loudness shelf: general SVF mix with runtime bypass
+    (usb_audio.c:697-702).  When bypassed, both state and output freeze."""
+    sva1, sva2, sva3, svm0, svm1, svm2 = (cf_row[0], cf_row[1], cf_row[2],
+                                          cf_row[3], cf_row[4], cf_row[5])
+    ic1, ic2 = s
+    v3 = xin - ic2
+    v1 = sva1 * ic1 + sva2 * v3
+    v2 = ic2 + sva2 * ic1 + sva3 * v3
+    ic1n = 2.0 * v1 - ic1
+    ic2n = 2.0 * v2 - ic2
+    out = svm0 * xin + svm1 * v1 + svm2 * v2
+    return (torch.where(bypass, xin, out),
+            (torch.where(bypass, ic1, ic1n), torch.where(bypass, ic2, ic2n)))
+
+
+# ----------------------------------------------------------------------------
+# structure and layout helpers
+# ----------------------------------------------------------------------------
+
+
+def _active_bands(static: StaticChain, channels):
+    """(ch, band, kind) for every non-skipped band of the given channels."""
+    out = []
+    for ch in channels:
+        for band, kind in enumerate(static.band_kinds[ch]):
+            if kind != SKIP:
+                out.append((ch, band, kind))
+    return out
+
+
+def _chain_structure(static: StaticChain):
+    """Which master bands and which output bands are live (float path)."""
+    nout = static.n_outputs
+    master_bands = _active_bands(
+        static, [ch for ch in (0, 1)
+                 if not static.bypass_master_eq
+                 and not static.channel_bypassed[ch]])
+    out_channels = [
+        C.CH_OUT_1 + o for o in range(nout)
+        if static.output_enabled[o] and not static.output_mute[o]
+        and not static.channel_bypassed[C.CH_OUT_1 + o]]
+    return master_bands, _active_bands(static, out_channels)
+
+
+def _gather_states(state, bands):
+    """(a, b) state pair per band: SVF bands keep eq_c/eq_d, TDF2 eq_a/eq_b."""
+    init = []
+    for ch, band, kind in bands:
+        if kind != TDF2:
+            init.append((state.eq_c[ch, band], state.eq_d[ch, band]))
+        else:
+            init.append((state.eq_a[ch, band], state.eq_b[ch, band]))
+    return tuple(init)
+
+
+def _scatter_states(state, bands, finals):
+    """Write final band states back, one indexed write per state array.
+    The arrays are this segment's own copies (``process_float`` clones
+    them), so the writes are in place."""
+    groups = {}
+    for (ch, band, kind), (sa, sb) in zip(bands, finals):
+        fa, fb = ("eq_a", "eq_b") if kind == TDF2 else ("eq_c", "eq_d")
+        for f, row in ((fa, sa), (fb, sb)):
+            cs, bs, vs = groups.setdefault(f, ([], [], []))
+            cs.append(ch)
+            bs.append(band)
+            vs.append(row)
+    for f, (cs, bs, vs) in groups.items():
+        getattr(state, f)[cs, bs] = torch.stack(vs)
+    return state
+
+
+def _delay_apply(ring_k, buf, dly, T, D):
+    """One output's delayed read over a whole segment (usb_audio.c:897-911).
+
+    Rings are time-ordered (oldest first): the delayed stream is a window
+    of concat(ring, buf) starting at D - dly.  ``dly`` stays a device
+    tensor (an index_select, not a host read), so the host never waits on
+    the card here.  Returns (delayed [T, B], ring' [D, B])."""
+    comb = torch.cat([ring_k, buf], dim=0)                # [D+T, B]
+    idx = (D - dly.to(torch.int64)) + torch.arange(T, device=buf.device)
+    delayed = comb.index_select(0, idx)
+    ring_new = buf[T - D:] if T >= D else comb[T:]
+    return delayed, ring_new
+
+
+def _unflatten(arrs, Npkt, T):
+    """[K, Ttot, B] -> [Npkt, K, T, B] (emit='full' layout)."""
+    k, _, b = arrs.shape
+    return arrs.reshape(k, Npkt, T, b).movedim(1, 0)
+
+
+def refuse(static: StaticChain):
+    """Raise NotImplementedError for every chain this slice does not run."""
+    if not static.is_float:
+        raise NotImplementedError(
+            "the RP2040 Q28 chain is not ported yet: ROADMAP.md section 1, "
+            "item 6")
+    if not static.mxu:
+        raise NotImplementedError(
+            "the scan lowering (mxu=False) is not ported yet: ROADMAP.md "
+            "section 1, item 7")
+    if static.schedule:
+        raise NotImplementedError(
+            "variable-packet schedules (44.1 kHz) are not ported yet: "
+            "ROADMAP.md section 1, item 8")
+    if static.wire:
+        raise NotImplementedError(
+            "the device-side wire stage (wire=True) is not ported yet: "
+            "ROADMAP.md section 1, item 9")
+
+
+# ----------------------------------------------------------------------------
+# the segment processor
+# ----------------------------------------------------------------------------
+
+
+def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
+                  blocks):
+    """One segment of the RP2350 float chain.
+
+    ``p``/``state``: the port's ChainParams/ChainState of tensors on the
+    device of ``x`` (int32 [n_packets, 2, block_size, B]).  ``preset_mute``
+    float32 [n_packets] (default ones).  ``blocks``: the block matrices
+    ``mxu.build_blocks(static, p, device)`` of these params, built once per
+    parameter set by the caller.
+
+    Returns (state', outputs) as the JAX package's ``_process_float``: the
+    input state is not modified."""
+    from . import mxu
+
+    refuse(static)
+    Npkt, _, T, B = x.shape
+    Ttot = Npkt * T
+    nout = static.n_outputs
+    ns2 = static.n_spdif * 2
+    master_bands, out_bands = _chain_structure(static)
+    if preset_mute is None:
+        preset_mute = torch.ones((Npkt,), dtype=_F32, device=x.device)
+    st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone(),
+                        eq_c=state.eq_c.clone(), eq_d=state.eq_d.clone())
+
+    # per-packet volume staging (usb_audio.c:569-574), [Npkt, 1]
+    vol_mul_master = (p.vol_mul * preset_mute[:, None]) * p.master_vol
+
+    # ---- PASS 1: unpack + preamp (usb_audio.c:678-686) ----
+    x2 = x.transpose(0, 1).reshape(2, Ttot, B)
+    bl = x2[0].to(_F32) * p.unpack_gain[0]
+    br = x2[1].to(_F32) * p.unpack_gain[1]
+    del x2
+
+    # ---- loudness + master EQ (block matmuls) ----
+    if static.loudness_on or master_bands:
+        st, bl, br = mxu.chain_a(static, p, blocks, st, bl, br,
+                                 master_bands, Npkt)
+
+    # ---- PASS 2.5 leveller: envelope at packet ends, block phase ----
+    # (leveller.c:147-262)
+    if static.leveller_on:
+        env_l, env_r = mxu.env_packet_ends(static, p, st, bl, br, Npkt)
+        st = st._replace(lev_env=torch.stack([env_l[-1], env_r[-1]]))
+        a_att, a_rel = p.lev[1], p.lev[2]
+        thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
+        max_gain, makeup = p.lev[7], p.lev[8]
+        slope, inv_two_knee = p.lev[9], p.lev[10]
+
+        # gain computer, vectorized over packets
+        rms_sq = torch.maximum(env_l, env_r)
+        rms_db = 10.0 * fmath.log10_f32(rms_sq + 1e-30)
+        half = knee * 0.5
+        d = thresh + half - rms_db
+        zero = torch.zeros_like(rms_db)
+        gc = torch.where(
+            rms_db > thresh + half, zero,
+            torch.where(rms_db >= thresh - half,
+                        slope * d * d * inv_two_knee,
+                        (thresh - rms_db) * slope))
+        gc = torch.minimum(gc + makeup, max_gain)
+        gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
+
+        # block-rate attack/release smoothing: a recurrence over packets,
+        # with the alpha^count correction (leveller.c:223-227) hoisted
+        count = torch.full((1,), float(T), dtype=_F32, device=x.device)
+        pow_att = fmath.pow_f32(a_att, count)
+        pow_rel = fmath.pow_f32(a_rel, count)
+        gdb = st.lev_gain_db
+        gdbs = []
+        for k in range(Npkt):
+            alpha = torch.where(gc[k] < gdb, pow_att, pow_rel)
+            gdb = fmath.smooth_det(alpha, gdb, gc[k])
+            gdbs.append(gdb)
+        g_cur_p = fmath.exp10_f32(torch.stack(gdbs) * _INV20)   # [Npkt, B]
+        g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
+        st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
+                         lev_gain_prev=g_prev_p[-1])
+
+        # gain ramp with the firmware's sequential accumulation, all
+        # packets at once (a one-sample packet jumps to g_cur,
+        # leveller.c:216-221)
+        gains = torch.empty((Npkt, T, B), dtype=_F32, device=x.device)
+        if T == 1:
+            gains[:, 0] = g_cur_p
+        else:
+            step = (g_cur_p - g_prev_p) * float(np.float32(1.0)
+                                                / np.float32(T - 1))
+            g = g_prev_p
+            for i in range(T):
+                gains[:, i] = g
+                g = g + step
+        gains = gains.reshape(Ttot, B)
+
+        if static.leveller_lookahead:
+            # time-ordered lookahead ring: the delayed stream is a window
+            # of concat(ring, segment)
+            comb_l = torch.cat([st.lev_la[0], bl], dim=0)
+            comb_r = torch.cat([st.lev_la[1], br], dim=0)
+            out_l, out_r = comb_l[:Ttot], comb_r[:Ttot]
+            st = st._replace(lev_la=torch.stack([comb_l[Ttot:],
+                                                 comb_r[Ttot:]]))
+        else:
+            out_l, out_r = bl, br
+
+        peak = torch.maximum(out_l.abs(), out_r.abs())
+        max_g = fmath.det_div(float(np.float32(C.LEVELLER_LIMITER_CEIL)),
+                              peak)
+        one = torch.ones_like(max_g)
+        cap = torch.where(max_g > 1.0, max_g, one)
+        g_eff = torch.where((peak > 0.0) & (gains > 1.0) & (max_g < gains),
+                            cap, gains)
+        del peak, max_g, cap, gains
+        bl = out_l * g_eff
+        br = out_r * g_eff
+        del out_l, out_r, g_eff
+
+    # ---- PASS 3: master peaks (pre-crossfeed) ----
+    peak_ml = bl.abs().amax(dim=0)
+    peak_mr = br.abs().amax(dim=0)
+
+    # ---- PASS 3-5: crossfeed + matrix + per-output EQ ----
+    st, bufs = mxu.chain_b(static, p, blocks, st, bl, br, out_bands, Npkt)
+    del bl, br
+
+    # output gains (usb_audio.c:885-894), per packet through the
+    # preset-mute envelope
+    for o in range(nout):
+        if not static.output_enabled[o]:
+            continue
+        if static.output_mute[o]:
+            bufs[o] = torch.zeros_like(bufs[o])
+            continue
+        gain = (p.out_gain[o] * vol_mul_master)[:, :, None]   # [Npkt, 1, 1]
+        y = bufs[o].reshape(Npkt, T, B)
+        bufs[o] = torch.where(gain == 0.0, torch.zeros_like(y),
+                              y * gain).reshape(Ttot, B)
+
+    # delay lines (usb_audio.c:897-911)
+    if static.delayed_outputs:
+        D = static.delay_ring
+        rows = []
+        for k, o in enumerate(static.delayed_outputs):
+            bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
+                                           p.delay_samples[k], Ttot, D)
+            rows.append(ring_k)
+        st = st._replace(delay=torch.stack(rows))
+
+    # peaks / clip flags (sticky over the segment == sticky per packet)
+    peaks = [peak_ml, peak_mr]
+    for o in range(ns2):
+        peaks.append(bufs[o].abs().amax(dim=0))
+    if static.output_enabled[nout - 1]:
+        peaks.append(bufs[nout - 1].abs().amax(dim=0))
+    else:
+        peaks.append(torch.zeros_like(peak_ml))
+    peaks = torch.stack(peaks)                               # [nch', B]
+    clip = st.clip_flags
+    for chi in range(peaks.shape[0]):
+        ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
+        clip = clip | ((peaks[chi] > C.CLIP_THRESH_F).to(torch.int32)
+                       << ch_bit)
+    st = st._replace(clip_flags=clip)
+
+    # S/PDIF conversion (usb_audio.c:934-940)
+    s24 = []
+    for pair in range(static.n_spdif):
+        lch, rch = pair * 2, pair * 2 + 1
+        on = static.output_enabled[lch] or static.output_enabled[rch]
+        for chn in (lch, rch):
+            if on:
+                dl = bufs[chn].clamp(-1.0, 1.0)
+                s24.append(f32_to_i32(dl * 8388607.0))
+            else:
+                s24.append(torch.zeros(bufs[chn].shape, dtype=torch.int32,
+                                       device=x.device))
+    outputs = {}
+    # peak u16 conversion (usb_audio.c:841,921): trunc(min(1,peak)*32767)
+    outputs["peaks"] = (torch.clamp(peaks, max=1.0) * 32767.0).trunc().to(
+        torch.int32)
+    if static.emit == "full":
+        outputs["out"] = _unflatten(torch.stack(bufs), Npkt, T)
+        outputs["s24"] = _unflatten(torch.stack(s24), Npkt, T)
+    else:
+        # int32 sums wrap, as the JAX package's do
+        outputs["s24_sum"] = torch.stack(
+            [v.sum(dim=0) for v in s24]).to(torch.int32)
+    del s24
+
+    if static.pdm_on:
+        sub_q28 = f32_to_i32(bufs[nout - 1] * float(1 << 28))
+        st, words = pdm_segment(st, sub_q28)
+        if static.emit == "full":
+            outputs["pdm"] = words                  # [Ttot, 8, B] uint32 bits
+        else:
+            # the uint32 sum mod 2^32, held in int64
+            outputs["pdm_sum"] = words.sum(dim=(0, 1),
+                                           dtype=torch.int64) & 0xFFFFFFFF
+    return st, outputs
