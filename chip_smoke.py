@@ -7,23 +7,39 @@ Phases (each prints one line; any failure exits non-zero):
 
   1. the card: name and power limit (nvidia-smi)
   2. build every CUDA kernel from dspi_tpu_torch/kernels/csrc/ (nvcc, one
-     process per source, in parallel)
+     process per source, in parallel), with each source's register and
+     spill report from ptxas
   3. PDM kernel vs its plain PyTorch version on the card: 4100 streams (a
      ragged edge), three 96-sample segments with per-lane enable flips
      (fade-out, stop, restart, mid-fade re-enable); words and all 16 state
      rows bit-equal.  Then the kernel alone at the headline shape
      (16384 streams x 6144 samples), timed with CUDA events, beside its
      bound.
-  4. the main path at full width: Engine on the headline RP2350 chain at
-     48 kHz, 16384 streams, 4 chained segments of 128 packets x 48 samples
-     with state carried and a fresh input each (x ^ i); launch counts reset
-     just before and read just after; per-segment time and real-time
-     factor
-  5. card vs CPU on the same config at 8 streams: out/s24 <= 1e-6
-     relative RMS, PDM words equal up to the first differing modulator
-     input
-  6. one JSON line {"kernels": [...]} for every ported kernel
-  7. last line: {"ok": true, "device": {...}}
+  4. Q28 cascade kernel vs its plain version on the card: 4100 streams, two
+     packets, (loudness, envelope, bands) = (no, no, 3), (yes, no, 2),
+     (no, yes, 0), (yes, yes, 10), (no, no, 10), bypass flags and envelope
+     alphas that differ per cascade; outputs, envelopes and states equal
+     word for word
+  5. Q28 crossfeed kernel vs its plain version, the same way
+  6. the float main path at full width: Engine on the headline RP2350
+     chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
+     samples with state carried and a fresh input each (x ^ i); launch
+     counts reset just before and read just after; per-segment time and
+     real-time factor
+  7. card vs CPU on the float chain at 8 streams: out/s24 <= 1e-6 relative
+     RMS, PDM words equal up to the first differing modulator input
+  8. the Q28 main path at full width: Engine on the RP2040 headline chain
+     (full_chain_config, 7 channels), the same geometry, 16- and 24-bit
+     input, 4 chained segments each; fails unless a segment launches the
+     cascade kernel twice, the crossfeed kernel once and the PDM kernel
+     once.  Then the cascade and crossfeed kernels alone, on the very
+     arguments the path gave them, timed with CUDA events, beside their
+     bounds; and each of those calls at its full shape held word for word
+     against the plain version run on the CPU over 128 of its streams
+  9. card vs CPU on the Q28 chain at 8 streams, 16- and 24-bit: every
+     output word and every state word equal
+ 10. one JSON line {"kernels": [...]} for every kernel of the port
+ 11. last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports nothing of JAX or of the JAX package.
@@ -31,6 +47,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -42,18 +59,26 @@ import torch
 STREAMS, PACKETS, BLOCK, SEGMENTS = 16384, 128, 48, 4
 RATE = 48000.0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-# 32-bit integer issue: the integer pipes of an SM (16 lanes in each of its
-# 4 partitions) take 64 int32 operations per clock; the rate is that times
-# the SM count times the card's maximum SM clock, both read at run time.
-INT32_OPS_PER_SM_CLOCK = 64
-# int32 operations per modulated sample and stream, counted on the
-# kernel's own form (pdm.cu; profile_torch.py checks the count in the
-# SASS): a bit step is 6 (sign shift, two masks, two three-input adds, the
-# word's shift-add), 256 of them; a chunk is 22 (xorshift 6, dither 2,
-# shaper 12 with the multiply-adds fused, dither add, word end, err2
-# restore); 36 per sample (mode machine, clip, fade, target, leaky
-# integrators, freeze selects)
-PDM_OPS_PER_SAMPLE = 256 * 6 + 8 * 22 + 36
+# 32-bit integer issue per SM and clock (CUDA C Programming Guide,
+# throughput table, compute capability 9.0): 64 multiplies (IMAD, on the
+# FMA pipe), 64 operations on the integer ALU, and at most 128
+# thread-instructions in all (4 schedulers, one 32-thread instruction
+# each).  Adds, moves and left shifts may issue to either pipe (IADD3 on
+# the ALU, IMAD.IADD / IMAD.MOV / IMAD.SHL on the FMA pipe).  So a kernel's
+# operation time is at least the longest of: the multiplies its function
+# needs over 64, the ALU-only instructions of its sample loop over 64, and
+# all per-thread arithmetic instructions there over 128 (the last two
+# counted in the SASS, build.loop_counts; profile_torch.py prints the same
+# counts), in SM clocks at the card's maximum SM clock, read at run time.
+# Its bound is that or the bytes' time, whichever is longer.
+PIPE_OPS_PER_SM_CLOCK = 64
+ISSUE_PER_SM_CLOCK = 128
+# multiplies of two run-time values each function needs: fast_mul_q28 is
+# three 16 x 16 partial products, five of them a band and three for the
+# leveller envelope; the crossfeed runs eight a sample.  The PDM
+# modulator's multiplies on the enabled, unfaded path are all by
+# constants, which shifts and adds can do, so it needs none.
+MUL_PER_BAND, MUL_PER_ENV, MUL_XF, MUL_PDM = 15, 9, 24, 0
 
 
 def fail(msg: str) -> None:
@@ -102,23 +127,33 @@ def phase_card() -> tuple[str, str]:
     return torch.cuda.get_device_name(0), line
 
 
-def int32_ops_per_s() -> float:
-    """Peak int32 issue rate of card 0: SMs x 64 ops x max SM clock."""
+@functools.lru_cache(maxsize=None)
+def sm_clocks_per_s() -> float:
+    """SM clocks a second over all of card 0: SMs x max SM clock."""
     mhz = float(_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_OPS_PER_SM_CLOCK * mhz * 1e6
+    return sms * mhz * 1e6
 
 
 def phase_build() -> None:
+    """Build every kernel; print per source its kernel count, most
+    registers and spill bytes."""
+    import re
+
     from dspi_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
     report = build.build_all()
-    regs = {n: [ln.strip() for ln in r["log"].splitlines()
-                if "registers" in ln] for n, r in report.items()}
-    print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{sorted(report) or 'nothing (cached)'}; ptxas: {regs}",
-          flush=True)
+    summary = {}
+    for name, r in report.items():
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", r["log"])]
+        spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill",
+                                               r["log"]))
+        summary[name] = {"kernels": len(regs), "max_registers": max(regs),
+                         "spill_bytes": spill,
+                         "seconds": round(r["seconds"], 1)}
+    print(f"build: {time.perf_counter() - t0:.1f} s; "
+          f"{summary or 'nothing (cached)'}", flush=True)
 
 
 def _pdm_lane_state(b: int, dev):
@@ -157,6 +192,8 @@ def phase_pdm(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(5)
     max_err = 0
     plain_ms = kern_small_ms = 0.0
+    pdm_cuda.pdm_words(*(torch.zeros(s, dtype=torch.int32, device=dev)
+                         for s in ((1, 1), (16, 1))))   # loads the kernel
     for seg in range(3):
         ena = np.array([enables[int(k)][seg] for k in g], np.int32)
         st = mode_prologue(st._replace(pdm_ena=torch.from_numpy(ena).to(dev)))
@@ -197,23 +234,18 @@ def phase_pdm(dev) -> dict:
     s16[10] = 1
     ms = cuda_ms(lambda: pdm_cuda.pdm_words(x, s16), reps=5)
     nbytes = 4 * T * B + 32 * T * B + 2 * 64 * B
-    ops = PDM_OPS_PER_SAMPLE * T * B
-    int_rate = int32_ops_per_s()
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / int_rate
-    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_ms, by, text = bound(
+        work(sample_ops("pdm", "pdm_kernel", 1), MUL_PDM, T * B), nbytes)
     print(f"pdm: kernel == plain on 4100 streams x 3 x 96 samples "
           f"(fade-out, stop, restart, mid-fade re-enable); plain "
           f"{plain_ms:.1f} ms / kernel {kern_small_ms:.3f} ms per segment "
           f"there; headline {T}x{B}: kernel {ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({ops:.3e} int32 ops at {int_rate:.4e}/s, "
-          f"{nbytes:.3e} bytes)",
-          flush=True)
+          f"{bound_ms:.3f} ms by {by} ({text})", flush=True)
     return {"name": "pdm_modulator", "route": "cuda",
             "source": "dspi_tpu_torch/kernels/csrc/pdm.cu",
             "replaces": "dspi_tpu/kernels/pdm_pallas.py:138",
             "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": None, "equal_to_plain": True,
             "shape": [T, B], "plain_shape": [2 * BLOCK, 4100],
             "kernel_ms_at_plain_shape": kern_small_ms}
@@ -324,16 +356,372 @@ def phase_card_vs_cpu(dev) -> None:
           f"input differs", flush=True)
 
 
+# (has_loud, has_env, nb) of the cascade kernel's checks; the last two are
+# the template instances the Q28 main path launches
+EQ_CASES = ((False, False, 3), (True, False, 2), (False, True, 0),
+            (True, True, 10), (False, False, 10))
+
+
+def _rand_i32(gen, lo, hi, shape, dev):
+    return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
+                         device=dev)
+
+
+def phase_eq(dev) -> dict:
+    """Cascade kernel vs its plain version on the card, word for word."""
+    from dspi_tpu_torch.kernels.eq import q28_cascades_plain
+    from dspi_tpu_torch.kernels.eq_cuda import q28_cascades
+
+    G, T, B = 4, 2 * BLOCK, 4100
+    gen = torch.Generator(device=dev).manual_seed(13)
+    a_rms = [260000000 - 9999999 * g for g in range(G)]
+    # every pair of loudness bypass flags, a different alpha per cascade
+    scal = torch.tensor([[g % 2, g // 2, a_rms[g], (1 << 28) - a_rms[g]]
+                         for g in range(G)], dtype=torch.int32, device=dev)
+    times = {}
+    for has_loud, has_env, nb in EQ_CASES:
+        nr = (2 if has_loud else 0) + nb
+        x = _rand_i32(gen, -(1 << 27), 1 << 27, (G, T, B), dev)
+        cf = _rand_i32(gen, -(1 << 27), 1 << 27, (G, nr, 5), dev) >> 2
+        s0 = _rand_i32(gen, -(1 << 20), 1 << 20,
+                       (G, 2 * nr + int(has_env), B), dev)
+        kw = dict(nb=nb, has_loud=has_loud, has_env=has_env, tc=BLOCK)
+        got = q28_cascades(x, cf, s0, scal, **kw)    # loads the kernel
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        want = q28_cascades_plain(x, cf, s0, scal, **kw)
+        ev[1].record()
+        ev[2].record()
+        q28_cascades(x, cf, s0, scal, **kw)
+        ev[3].record()
+        torch.cuda.synchronize()
+        times[(has_loud, has_env, nb)] = (ev[0].elapsed_time(ev[1]),
+                                          ev[2].elapsed_time(ev[3]))
+        for name, u, v in zip(("y", "env", "state"), got, want):
+            if (u is None) != (v is None) or (
+                    u is not None and not torch.equal(u, v)):
+                fail(f"cascade kernel != plain version ({name}) for "
+                     f"loudness={has_loud} envelope={has_env} nb={nb}")
+    plain_ms, kern_ms = times[(True, True, 10)]
+    print(f"eq_q28: kernel == plain on {G} cascades x {B} streams x {T} "
+          f"samples for (loudness, envelope, bands) in {list(EQ_CASES)}; "
+          f"plain / kernel ms there: "
+          f"{ {str(k): [round(v, 3) for v in t] for k, t in times.items()} }",
+          flush=True)
+    return {"name": "eq_q28_cascade", "route": "cuda",
+            "source": "dspi_tpu_torch/kernels/csrc/eq_q28.cu",
+            "replaces": "dspi_tpu/kernels/eq_pallas.py:102",
+            "max_abs_err": 0, "plain_ms": plain_ms, "library_ms": None,
+            "equal_to_plain": True, "plain_shape": [G, T, B],
+            "plain_case": "loudness + 10 bands + envelope",
+            "kernel_ms_at_plain_shape": kern_ms}
+
+
+def phase_xf(dev) -> dict:
+    """Crossfeed kernel vs its plain version on the card, word for word,
+    over two chained segments."""
+    from dspi_tpu_torch.kernels.xf_cuda import xf_q28, xf_q28_plain
+
+    T, B = 2 * BLOCK, 4100
+    gen = torch.Generator(device=dev).manual_seed(17)
+    s_plain = s_kern = _rand_i32(gen, -(1 << 24), 1 << 24, (4, B), dev)
+    plain_ms = kern_ms = 0.0
+    for seg, coef in enumerate((
+            [19000000, 249000000, -180000000],                 # BS2B-like
+            _rand_i32(gen, -2**31, 2**31 - 1, (3,), dev).tolist())):
+        coef = torch.tensor(coef, dtype=torch.int32, device=dev)
+        l, r = (_rand_i32(gen, -(1 << 28), 1 << 28, (T, B), dev)
+                for _ in range(2))
+        got = xf_q28(l, r, coef, s_kern)             # loads the kernel
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        want = xf_q28_plain(l, r, coef, s_plain)
+        ev[1].record()
+        ev[2].record()
+        xf_q28(l, r, coef, s_kern)
+        ev[3].record()
+        torch.cuda.synchronize()
+        plain_ms += ev[0].elapsed_time(ev[1]) / 2
+        kern_ms += ev[2].elapsed_time(ev[3]) / 2
+        if not all(torch.equal(u, v) for u, v in zip(got, want)):
+            fail(f"crossfeed kernel != plain version in segment {seg}")
+        s_plain, s_kern = want[2], got[2]
+    print(f"xf_q28: kernel == plain on {B} streams x 2 chained segments of "
+          f"{T} samples; plain {plain_ms:.1f} ms / kernel {kern_ms:.3f} ms "
+          f"per segment there", flush=True)
+    return {"name": "xf_q28", "route": "cuda",
+            "source": "dspi_tpu_torch/kernels/csrc/xf_q28.cu",
+            "replaces": "dspi_tpu/chain/pipeline.py:1072 (a lax.scan, "
+                        "no TPU kernel)",
+            "max_abs_err": 0, "plain_ms": plain_ms, "library_ms": None,
+            "equal_to_plain": True, "plain_shape": [T, B],
+            "kernel_ms_at_plain_shape": kern_ms}
+
+
+def _eq_work(a, k) -> tuple[dict, int]:
+    """(operations, bytes) of one cascade call, from its arguments and the
+    SASS of the template instance it launches."""
+    x, cf, s0, scal = a
+    G, T, B = x.shape
+    loud, env = bool(k.get("has_loud")), bool(k.get("has_env"))
+    if loud and bool((scal[:, :2] != 0).any()):
+        fail("a bypassed loudness filter skips work the SASS count holds")
+    inst = f"cascade_kernelILi{k['nb']}ELb{int(loud)}ELb{int(env)}E"
+    mul = MUL_PER_BAND * cf.shape[1] + (MUL_PER_ENV if env else 0)
+    nbytes = 4 * (2 * x.numel() + (G * (T // k["tc"]) * B if env else 0)
+                  + 2 * s0.numel() + cf.numel() + scal.numel())
+    return work(sample_ops("eq_q28", inst, 1), mul, G * T * B), nbytes
+
+
+@functools.lru_cache(maxsize=None)
+def _sass(lib: str) -> str:
+    from dspi_tpu_torch.kernels import build
+
+    return build.sass(lib)
+
+
+def sample_ops(lib: str, kernel: str, loads: int) -> dict:
+    """ALU-only and all per-thread arithmetic instructions per sample and
+    thread of a kernel's sample loop, from its SASS; ``loads`` is its
+    global loads per sample."""
+    from dspi_tpu_torch.kernels import build
+
+    c = build.loop_counts(_sass(lib), kernel)
+    samples = c["ldg"] / loads                 # samples per loop iteration
+    return {"alu_only": c["alu_only"] / samples,
+            "arith": (c["imad"] + c["alu"]) / samples}
+
+
+def work(per_sample: dict, mul: int, n: int) -> dict:
+    """Operation counts over ``n`` sample-threads: ``mul`` multiplies a
+    sample, the SASS counts of ``per_sample``."""
+    return {"mul": mul * n, **{k: v * n for k, v in per_sample.items()}}
+
+
+def bound(ops: dict, nbytes) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the numbers) for operation counts (see
+    PIPE_OPS_PER_SM_CLOCK) and a byte count."""
+    terms = {"multiplies": ops["mul"] / PIPE_OPS_PER_SM_CLOCK,
+             "ALU-only": ops["alu_only"] / PIPE_OPS_PER_SM_CLOCK,
+             "issue": ops["arith"] / ISSUE_PER_SM_CLOCK}
+    top = max(terms, key=terms.get)
+    t_ops, t_bytes = terms[top] / sm_clocks_per_s(), nbytes / HBM_BYTES_PER_S
+    text = (f"{ops['mul']:.4e} multiplies, {ops['alu_only']:.4e} ALU-only "
+            f"and {ops['arith']:.4e} in all, longest term {top}; "
+            f"{sm_clocks_per_s():.4e} SM clocks/s; {nbytes:.4e} bytes")
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", text)
+
+
+def phase_q28_main(dev, card: str, bit_depth: int, record: bool) -> dict:
+    """The Q28 main path at full width; with ``record``, then each cascade
+    and crossfeed call of one more segment, timed alone on its own
+    arguments."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, pipeline
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.kernels import LAUNCHES
+
+    t0 = time.perf_counter()
+    eng = Engine(full_chain_config(Platform.RP2040, RATE), n_streams=STREAMS,
+                 block_size=BLOCK, bit_depth=bit_depth, emit="reduced",
+                 pdm=True, pdm_fade=False, device=dev)
+    setup_s = time.perf_counter() - t0
+    lim = 1 << (bit_depth - 2)
+    gen = torch.Generator(device=dev).manual_seed(19 + bit_depth)
+    x = _rand_i32(gen, -lim, lim, (PACKETS, 2, BLOCK, STREAMS), dev)
+    eng.process(x ^ SEGMENTS)                      # warm-up segment
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for k in list(LAUNCHES):
+        LAUNCHES[k] = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(SEGMENTS + 1)]
+    outs = []
+    h0 = time.perf_counter()
+    ev[0].record()
+    for i in range(SEGMENTS):
+        outs.append(eng.process(x ^ i))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    launches = {k: n for k, n in LAUNCHES.items() if n}
+
+    want = {"eq_q28": 2 * SEGMENTS, "xf_q28": SEGMENTS, "pdm": SEGMENTS}
+    if launches != want:
+        fail(f"Q28 path ({bit_depth}-bit) launched {launches} in {SEGMENTS} "
+             f"segments, not {want}")
+    for i, out in enumerate(outs):
+        if set(out) != {"peaks", "s24_sum", "pdm_sum"}:
+            fail(f"Q28 segment {i}: outputs {sorted(out)}")
+        if out["peaks"].shape != (7, STREAMS) or not (
+                (out["peaks"] >= 0) & (out["peaks"] <= 0xFFFF)).all():
+            fail(f"Q28 segment {i}: peaks out of range")
+        if not out["pdm_sum"].ne(0).any() or not out["s24_sum"].ne(0).any():
+            fail(f"Q28 segment {i}: silent outputs")
+    if not torch.isfinite(eng.state.lev_gain_db).all():
+        fail("Q28 state lev_gain_db not finite")
+    seg_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(SEGMENTS)]
+    mean_ms = sum(seg_ms) / SEGMENTS
+    rtf = STREAMS * PACKETS * BLOCK / RATE / (mean_ms / 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"Q28 main path ({bit_depth}-bit): {STREAMS} streams x "
+          f"{PACKETS}x{BLOCK} samples, {SEGMENTS} chained segments: per "
+          f"segment {[round(m, 3) for m in seg_ms]} ms (CUDA events), mean "
+          f"{mean_ms:.3f} ms, host wall {1e3 * wall / SEGMENTS:.3f} ms; RTF "
+          f"{rtf:.1f}x; peak memory {peak_gb:.2f} GB; setup {setup_s:.1f} "
+          f"s; launches {launches}; card {card}", flush=True)
+    result = {"launches": launches}
+    if not record:
+        return result
+
+    calls = []
+    saved = pipeline.q28_cascades, pipeline.xf_q28
+
+    def recorder(fn, kind):
+        def call(*a, **k):
+            calls.append((kind, fn, a, k))
+            return fn(*a, **k)
+        return call
+
+    pipeline.q28_cascades = recorder(saved[0], "eq")
+    pipeline.xf_q28 = recorder(saved[1], "xf")
+    try:
+        eng.process(x ^ (SEGMENTS + 1))
+    finally:
+        pipeline.q28_cascades, pipeline.xf_q28 = saved
+    rows = []
+    for kind, fn, a, k in calls:
+        ms = cuda_ms(lambda: fn(*a, **k), reps=5)
+        if kind == "eq":
+            ops, nbytes = _eq_work(a, k)
+            extra = {"nb": k["nb"], "has_loud": k.get("has_loud", False),
+                     "has_env": k.get("has_env", False)}
+        else:
+            T, B = a[0].shape
+            ops = work(sample_ops("xf_q28", "xf_kernel", 2), MUL_XF, T * B)
+            nbytes = 4 * (4 * T * B + 8 * B + 3)
+            extra = {}
+        bound_ms, by, text = bound(ops, nbytes)
+        rows.append({"kind": kind, "shape": list(a[0].shape), "ms": ms,
+                     "bound_ms": bound_ms, "bound_by": by, "ops": ops,
+                     "bytes": nbytes, "work": text, **extra})
+    if [r["kind"] for r in rows] != ["eq", "xf", "eq"]:
+        fail(f"Q28 segment made calls {[r['kind'] for r in rows]}")
+    for r in rows:
+        print(f"  {r['kind']} {r['shape']}: kernel {r['ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['work']})",
+              flush=True)
+    for (kind, fn, a, k), r in zip(calls, rows):
+        r.update(check_path_call(kind, fn, a, k))
+        print(f"  {kind} {r['shape']}: kernel == plain version on the "
+              f"path's arguments, at full length, on streams "
+              f"{r['checked_streams']} (plain on the CPU "
+              f"{r['plain_cpu_s']:.1f} s)", flush=True)
+    result["calls"] = rows
+    return result
+
+
+def check_path_call(kind, fn, a, k) -> dict:
+    """One recorded call of the main path: the kernel at the path's own
+    shape, held against the plain version run on the CPU over the first
+    and the last 64 streams of the same arguments, every word equal."""
+    from dspi_tpu_torch.kernels.eq import q28_cascades_plain
+    from dspi_tpu_torch.kernels.xf_cuda import xf_q28_plain
+
+    B = a[0].shape[-1]
+    idx = torch.cat([torch.arange(64), torch.arange(B - 64, B)]).to(a[0].device)
+    got = fn(*a, **k)
+
+    def cut(v):
+        return v.index_select(-1, idx).cpu()
+
+    t0 = time.perf_counter()
+    if kind == "eq":
+        x, cf, s0, scal = a
+        want = q28_cascades_plain(cut(x), cf.cpu(), cut(s0), scal.cpu(), **k)
+        names = ("y", "env", "state")
+    else:
+        l, r, coef, s4 = a
+        want = xf_q28_plain(cut(l), cut(r), coef.cpu(), cut(s4))
+        names = ("left", "right", "state")
+    plain_s = time.perf_counter() - t0
+    for name, u, v in zip(names, got, want):
+        if (u is None) != (v is None) or (
+                u is not None and not torch.equal(cut(u), v)):
+            fail(f"{kind} kernel != plain version ({name}) on the main "
+                 f"path's arguments {list(a[0].shape)} {k}")
+    return {"checked_streams": f"0-63 and {B - 64}-{B - 1}",
+            "plain_cpu_s": plain_s, "equal_to_plain_at_path_shape": True}
+
+
+def phase_q28_card_vs_cpu(dev) -> None:
+    """Q28 chain at 8 streams on the card and on the CPU: every output word
+    and every state word equal."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+
+    B, npkt, nseg = 8, 8, 2
+    rng = np.random.default_rng(29)
+    for bd in (16, 24):
+        engs = [Engine(full_chain_config(Platform.RP2040, RATE),
+                       n_streams=B, block_size=BLOCK, bit_depth=bd,
+                       emit="full", device=d) for d in (dev, "cpu")]
+        lim = 1 << (bd - 2)
+        for seg in range(nseg):
+            x = rng.integers(-lim, lim, size=(npkt, 2, BLOCK, B)).astype(
+                np.int32)
+            gpu, cpu = ({k: v.cpu() for k, v in e.process(x).items()}
+                        for e in engs)
+            for k in cpu:
+                if not torch.equal(gpu[k], cpu[k]):
+                    fail(f"Q28 card vs CPU ({bd}-bit, segment {seg}): {k} "
+                         f"differs")
+        if cpu["out"].abs().max() <= 1 << 20:
+            fail("Q28 card vs CPU: reference signal is silent")
+        for f, g, c in zip(engs[1].state._fields, engs[0].state,
+                           engs[1].state):
+            if (g is None) != (c is None) or (
+                    g is not None and not torch.equal(g.cpu(), c)):
+                fail(f"Q28 card vs CPU ({bd}-bit): state {f} differs")
+    print(f"Q28 card vs CPU: {B} streams x {nseg} segments of {npkt}x{BLOCK}"
+          f", 16- and 24-bit: every output and state word equal", flush=True)
+
+
 def main() -> None:
     kind, card = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
     pdm_row = phase_pdm(dev)
+    eq_row = phase_eq(dev)
+    xf_row = phase_xf(dev)
     launches = phase_main(dev, card)
     phase_card_vs_cpu(dev)
-    pdm_row["launches"] = launches["pdm"]
-    print(json.dumps({"kernels": [pdm_row]}), flush=True)
+    q28 = phase_q28_main(dev, card, 16, record=True)
+    q28_24 = phase_q28_main(dev, card, 24, record=False)
+    phase_q28_card_vs_cpu(dev)
+
+    # launches: each path's counted run (float: 4 segments; Q28: 4
+    # segments at 16-bit and 4 at 24-bit)
+    paths = {"rp2350_float": launches, "rp2040_q28_16bit": q28["launches"],
+             "rp2040_q28_24bit": q28_24["launches"]}
+    for row, key in ((pdm_row, "pdm"), (eq_row, "eq_q28"),
+                     (xf_row, "xf_q28")):
+        row["launches_by_path"] = {p: n.get(key, 0) for p, n in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    # the cascade kernel's time and bound per segment: its two calls
+    eq_calls = [c for c in q28["calls"] if c["kind"] == "eq"]
+    xf_call = next(c for c in q28["calls"] if c["kind"] == "xf")
+    eq_row.update(ms=sum(c["ms"] for c in eq_calls),
+                  bound_ms=sum(c["bound_ms"] for c in eq_calls),
+                  bound_by=max(eq_calls, key=lambda c: c["bound_ms"])[
+                      "bound_by"],
+                  calls=eq_calls)
+    xf_row.update(ms=xf_call["ms"], bound_ms=xf_call["bound_ms"],
+                  bound_by=xf_call["bound_by"], shape=xf_call["shape"])
+    print(json.dumps({"kernels": [pdm_row, eq_row, xf_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,9 @@ A port of the JAX package ``dspi_tpu`` (which stays the reference) to
 PyTorch on an NVIDIA H100.  It imports nothing of JAX or of ``dspi_tpu``:
 the plain-Python modules it needs are its own copies.
 
-This slice runs the RP2350 float chain at 48/96 kHz on the block-matmul
-lowering, with the delta-sigma PDM modulator as a hand-written CUDA kernel.
+It runs the RP2350 float chain at 48/96 kHz on the block-matmul lowering
+and the RP2040 Q28 chain, with the delta-sigma PDM modulator, the Q28 EQ
+cascades and the Q28 crossfeed as hand-written CUDA kernels.
 
 Layout:
   core/     numerics substrate (constants, exact Q28/Q15 and float math)

@@ -2,8 +2,9 @@
 
 ``Engine`` runs B parallel streams of one device config on one card.  It
 mirrors the JAX package's ``Engine`` (chain/__init__.py) for the RP2350
-float chain at 48 and 96 kHz on the block-matmul lowering; everything else
-is refused with NotImplementedError naming its ROADMAP.md item.
+float chain at 48 and 96 kHz on the block-matmul lowering and for the
+RP2040 Q28 chain at 48 and 96 kHz; everything else is refused with
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -21,12 +22,12 @@ from .mxu import build_blocks
 from .pack import (ChainParams, ChainState, StaticChain, build_params,
                    build_params_multi, build_static, from_numpy,
                    init_state, to_device, to_numpy)
-from .pipeline import process_float, refuse
+from .pipeline import process_float, process_q28, refuse
 
 __all__ = ["Engine", "StaticChain", "ChainParams", "ChainState",
            "build_static", "build_params", "build_params_multi",
-           "init_state", "packet_geometry", "process_float", "from_numpy",
-           "to_numpy", "to_device"]
+           "init_state", "packet_geometry", "process_float", "process_q28",
+           "from_numpy", "to_numpy", "to_device"]
 
 
 def packet_geometry(sample_rate, n_packets: int = 10):
@@ -67,9 +68,8 @@ class Engine:
                  schedule=None, mxu: bool = True, wire: bool = False,
                  device=None):
         """``device``: where the chain runs; None means "cuda", and raises
-        when no CUDA device is present.  ``schedule``, ``mxu=False`` and
-        ``wire=True`` are refused (not ported yet), as is the RP2040
-        platform."""
+        when no CUDA device is present.  ``schedule``, ``wire=True`` and,
+        on the float chain, ``mxu=False`` are refused (not ported yet)."""
         self.device = _device(device)
         self.cfg = cfg
         self.n_streams = n_streams
@@ -82,7 +82,7 @@ class Engine:
         refuse(self.static)
         self.params = to_device(build_params(self.derived, self.static),
                                 self.device)
-        self.blocks = build_blocks(self.static, self.params, self.device)
+        self.blocks = self._blocks()
         self.state = to_device(
             init_state(self.static, n_streams, pdm_seed=pdm_seed,
                        pdm_fade=pdm_fade), self.device)
@@ -95,24 +95,33 @@ class Engine:
         if preset_mute is not None:
             preset_mute = torch.as_tensor(preset_mute, dtype=torch.float32,
                                           device=self.device)
-        self.state, out = process_float(self.static, self.params, self.state,
-                                        x, preset_mute, blocks=self.blocks)
+        self.state, out = self.segment_fn(self.params, self.state, x,
+                                          preset_mute)
         return out
 
     @property
     def segment_fn(self):
         """``(params, state, x, preset_mute) -> (state', out)`` for the
-        CURRENT static and block matrices (which belong to
-        ``self.params``)."""
+        CURRENT static and, on the float chain, block matrices (which
+        belong to ``self.params``)."""
+        if not self.static.is_float:
+            return functools.partial(process_q28, self.static)
         return functools.partial(process_float, self.static,
                                  blocks=self.blocks)
+
+    def _blocks(self):
+        """The float chain's block matrices for the current params (the Q28
+        chain has none)."""
+        if not self.static.is_float:
+            return None
+        return build_blocks(self.static, self.params, self.device)
 
     def load_params_state(self, params, state) -> None:
         """Take params and state as NumPy trees (what the JAX package's
         ``build_params``/``init_state`` return, or ``np.asarray`` of its
         engine's), so both packages can run from the same numbers."""
         self.params, self.state = from_numpy(params, state, self.device)
-        self.blocks = build_blocks(self.static, self.params, self.device)
+        self.blocks = self._blocks()
 
     # -- control ----------------------------------------------------------
     def update_config(self, cfg: DeviceConfig, preset_load: bool = False,
@@ -151,15 +160,15 @@ class Engine:
             self.state = self._migrate_state(self.state, new_static)
         self.params = to_device(build_params(self.derived, self.static),
                                 self.device)
-        self.blocks = build_blocks(self.static, self.params, self.device)
+        self.blocks = self._blocks()
 
         st = self.state
-        # SVF<->biquad path flips
-        flips = [(ch, b) for ch in range(cfg.num_channels)
-                 for b in range(min(len(old_d.eq[ch]),
-                                    len(self.derived.eq[ch])))
-                 if old_d.eq[ch][b].use_svf != self.derived.eq[ch][b].use_svf
-                 and not self.derived.eq[ch][b].bypass]
+        # SVF<->biquad path flips (the Q28 chain has no SVF path)
+        flips = [] if not self.static.is_float else [
+            (ch, b) for ch in range(cfg.num_channels)
+            for b in range(min(len(old_d.eq[ch]), len(self.derived.eq[ch])))
+            if old_d.eq[ch][b].use_svf != self.derived.eq[ch][b].use_svf
+            and not self.derived.eq[ch][b].bypass]
         if flips:
             arrs = {f: getattr(st, f).clone()
                     for f in ("eq_a", "eq_b", "eq_c", "eq_d")}
@@ -187,8 +196,10 @@ class Engine:
         self.state = st
 
     def _reset_leveller(self, st):
-        """leveller_reset_state (leveller.c:95-105)."""
-        one = torch.ones_like(st.lev_gain)
+        """leveller_reset_state (leveller.c:95-105): unity gain is 1.0 on
+        the float chain and Q28_ONE on the Q28 chain."""
+        one = torch.full_like(st.lev_gain,
+                              1.0 if self.static.is_float else C.Q28_ONE)
         return st._replace(
             lev_env=torch.zeros_like(st.lev_env),
             lev_gain_db=torch.zeros_like(st.lev_gain_db),

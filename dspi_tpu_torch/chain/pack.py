@@ -405,7 +405,7 @@ def to_device(tree, device):
 
 
 def _check_homogeneous(params):
-    eq = params.eq_f32
+    eq = params.eq_f32 if params.eq_f32 is not None else params.eq_q28
     if (eq is not None and np.ndim(eq) != 3) or np.ndim(params.xf) != 1 \
             or np.ndim(params.matrix_gain) != 2:
         raise NotImplementedError(_PER_STREAM)

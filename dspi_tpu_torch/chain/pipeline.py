@@ -1,34 +1,38 @@
-"""The batched float pipeline: PASS 1-5 of process_audio_packet in PyTorch.
+"""The batched pipeline: PASS 1-5 of process_audio_packet in PyTorch.
 
 One call processes a *segment* of ``n_packets`` emulated USB packets of
 ``block_size`` samples for ``B`` independent streams at once:
 
     x: int32 [n_packets, 2, block_size, B]  ->  outputs [..., B]
 
-This is the JAX package's ``_process_float`` (chain/pipeline.py) on its
-block-matmul branches: the LTI passes (loudness + master EQ, crossfeed +
-matrix + per-output EQ) run as per-packet block matrices (chain/mxu.py),
-the leveller envelope as a weighted block reduction, and the rest as
-whole-segment tensor ops.  The leveller's packet-rate gain smoothing is a
-Python loop over packets; the PDM modulator is the CUDA kernel
-(kernels/pdm_cuda.py).
+``process_float`` is the RP2350 float chain, the JAX package's
+``_process_float`` (chain/pipeline.py) on its block-matmul branches: the
+LTI passes (loudness + master EQ, crossfeed + matrix + per-output EQ) run
+as per-packet block matrices (chain/mxu.py), the leveller envelope as a
+weighted block reduction, and the rest as whole-segment tensor ops.  It is
+ulp-faithful, not bit-frozen: matrix products re-round what the firmware
+computes sequentially, so it is held to <= 1e-6 relative RMS against the
+firmware-semantics golden model.
 
-  PASS 1  unpack + preamp + loudness shelves    usb_audio.c:590-718
-  PASS 2  master EQ block                       dsp_pipeline.c:282-365
-  PASS 2.5 leveller                             leveller.c:147-262
-  PASS 3  crossfeed + master peaks              usb_audio.c:737-749
-  PASS 4  matrix mix                            usb_audio.c:751-779
-  PASS 5  per-output EQ/gain/delay/convert      usb_audio.c:873-959
+``process_q28`` is the RP2040 Q28 chain, the JAX package's
+``_process_q28``, bit-exact: both EQ scans run as the Q28 cascade kernel
+(kernels/eq_cuda.py), the crossfeed as its own kernel (kernels/xf_cuda.py),
+and the rest as whole-segment integer tensor ops.
 
-The float path is ulp-faithful, not bit-frozen: matrix products re-round
-what the firmware computes sequentially, so it is held to <= 1e-6
-relative RMS against the firmware-semantics golden model.
+In both, the leveller's packet-rate gain smoothing is a Python loop over
+packets and the PDM modulator is the CUDA kernel (kernels/pdm_cuda.py).
 
-Refused here, each naming its ROADMAP.md item: the RP2040 Q28 chain, the
-scan lowering (``mxu=False``), variable-packet schedules and the
-device-side wire stage.
+  PASS 1  unpack + preamp + loudness            usb_audio.c:590-718 / 996-1047
+  PASS 2  master EQ block                       dsp_pipeline.c:282-365 / .S
+  PASS 2.5 leveller                             leveller.c:147-262 / 274-389
+  PASS 3  crossfeed + master peaks              usb_audio.c:737-749 / 1064-1073
+  PASS 4  matrix mix                            usb_audio.c:751-779 / 1075-1100
+  PASS 5  per-output EQ/gain/delay/convert      usb_audio.c:873-959 / 1191-1275
+
+Refused here, each naming its ROADMAP.md item: the float chain's scan
+lowering (``mxu=False``), variable-packet schedules and the device-side
+wire stage.
 """
-
 from __future__ import annotations
 
 import numpy as np
@@ -36,11 +40,14 @@ import torch
 
 from ..core import constants as C
 from ..core import fmath
-from ..core.qmath import f32_to_i32
+from ..core.qmath import f32_to_i32, q15_mul, q28_mul, q28_to_s24, wrap32
+from ..kernels.eq_cuda import q28_cascades
 from ..kernels.pdm_cuda import pdm_segment
+from ..kernels.xf_cuda import xf_q28
 from .pack import SKIP, SVF_HP, SVF_LP, SVF_PEAK, TDF2, StaticChain
 
 _F32 = torch.float32
+_I32 = torch.int32
 _INV20 = float(np.float32(1.0) / np.float32(20.0))
 
 
@@ -111,12 +118,15 @@ def _active_bands(static: StaticChain, channels):
 
 
 def _chain_structure(static: StaticChain):
-    """Which master bands and which output bands are live (float path)."""
+    """Which master bands and which output bands are live.  On RP2040,
+    bypass_master_eq gates the per-output EQ too (usb_audio.c:1200)."""
     nout = static.n_outputs
     master_bands = _active_bands(
         static, [ch for ch in (0, 1)
                  if not static.bypass_master_eq
                  and not static.channel_bypassed[ch]])
+    if not static.is_float and static.bypass_master_eq:
+        return master_bands, []
     out_channels = [
         C.CH_OUT_1 + o for o in range(nout)
         if static.output_enabled[o] and not static.output_mute[o]
@@ -137,8 +147,8 @@ def _gather_states(state, bands):
 
 def _scatter_states(state, bands, finals):
     """Write final band states back, one indexed write per state array.
-    The arrays are this segment's own copies (``process_float`` clones
-    them), so the writes are in place."""
+    The arrays are this segment's own copies (``process_float`` and
+    ``process_q28`` clone them), so the writes are in place."""
     groups = {}
     for (ch, band, kind), (sa, sb) in zip(bands, finals):
         fa, fb = ("eq_a", "eq_b") if kind == TDF2 else ("eq_c", "eq_d")
@@ -173,12 +183,10 @@ def _unflatten(arrs, Npkt, T):
 
 
 def refuse(static: StaticChain):
-    """Raise NotImplementedError for every chain this slice does not run."""
-    if not static.is_float:
-        raise NotImplementedError(
-            "the RP2040 Q28 chain is not ported yet: ROADMAP.md section 1, "
-            "item 6")
-    if not static.mxu:
+    """Raise NotImplementedError for every chain the port does not run.
+    The Q28 chain has no block-matmul lowering (``build_static`` sets
+    ``mxu=False`` for it), so the lowering check is the float chain's."""
+    if static.is_float and not static.mxu:
         raise NotImplementedError(
             "the scan lowering (mxu=False) is not ported yet: ROADMAP.md "
             "section 1, item 7")
@@ -393,6 +401,315 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
             outputs["pdm"] = words                  # [Ttot, 8, B] uint32 bits
         else:
             # the uint32 sum mod 2^32, held in int64
+            outputs["pdm_sum"] = words.sum(dim=(0, 1),
+                                           dtype=torch.int64) & 0xFFFFFFFF
+    return st, outputs
+
+
+# ----------------------------------------------------------------------------
+# the Q28 segment processor (RP2040)
+# ----------------------------------------------------------------------------
+
+_IDENT_Q28 = (C.Q28_ONE, 0, 0, 0, 0)        # an exact pass-through band row
+_INV_Q28 = 2.0 ** -28
+_TINY = float(np.float32(1e-30))
+
+
+def _band_rows(p, st, bands, nb):
+    """Coefficient rows and (s1, s2) state rows of one cascade's ``bands``,
+    padded to ``nb`` bands with exact pass-through rows and zero states."""
+    B = st.eq_a.shape[-1]
+    dev = st.eq_a.device
+    pad = nb - len(bands)
+    rows = [p.eq_q28[c, band][None] for c, band, _k in bands]
+    rows += [torch.tensor([_IDENT_Q28], dtype=_I32, device=dev)] * pad
+    srows = [v for c, band, _k in bands
+             for v in (st.eq_a[c, band], st.eq_b[c, band])]
+    srows += [torch.zeros((B,), dtype=_I32, device=dev)] * (2 * pad)
+    return rows, srows
+
+
+def _q28_master(static: StaticChain, p, st, bl, br, master_bands,
+                a_rms_q28, one_minus):
+    """Scan A as one cascade call over G=2 (master L, R): the loudness
+    prefix, the master bands (identity rows pad the shorter channel) and
+    the leveller envelope, as the JAX package's ``_q28_kernel_master``
+    builds it.  ``st`` holds this segment's own eq_a/eq_b copies, written
+    in place.  Returns (st', bl', br', env_ends [2, Npkt, B] | None)."""
+    dev = bl.device
+    has_loud, has_env = static.loudness_on, static.leveller_on
+    n_loud = 2 if has_loud else 0
+    mb = [[t for t in master_bands if t[0] == ch] for ch in range(2)]
+    nb = max(len(mb[0]), len(mb[1]))
+    cf_ch, s_ch = [], []
+    for ch in range(2):
+        rows, srows = _band_rows(p, st, mb[ch], nb)
+        if has_loud:
+            rows = [p.loud_qbq] + rows
+            srows = [st.loud_a[ch, 0], st.loud_b[ch, 0],
+                     st.loud_a[ch, 1], st.loud_b[ch, 1]] + srows
+        if has_env:
+            srows.append(st.lev_env[ch])
+        cf_ch.append(torch.cat(rows) if rows
+                     else torch.zeros((0, 5), dtype=_I32, device=dev))
+        s_ch.append(torch.stack(srows))
+    zero2 = torch.zeros((2,), dtype=_I32, device=dev)
+    scal = torch.cat([p.loud_bypass.to(_I32) if has_loud else zero2,
+                      torch.stack([a_rms_q28, one_minus]) if has_env
+                      else zero2])                 # the same for L and R
+    y, env, sF = q28_cascades(
+        torch.stack([bl, br]), torch.stack(cf_ch), torch.stack(s_ch),
+        scal.expand(2, 4).contiguous(), nb=nb, has_loud=has_loud,
+        has_env=has_env, tc=static.block_size)
+    if has_loud:
+        st = st._replace(loud_a=sF[:, [0, 2]], loud_b=sF[:, [1, 3]])
+    finals = []
+    for t in master_bands:
+        r = 2 * n_loud + 2 * mb[t[0]].index(t)
+        finals.append((sF[t[0], r], sF[t[0], r + 1]))
+    st = _scatter_states(st, master_bands, finals)
+    return st, y[0], y[1], env
+
+
+def _q28_outeq(static: StaticChain, p, st, bufs, out_bands):
+    """Scan B as one cascade call over the live outputs, as the JAX
+    package's ``_q28_kernel_outeq`` builds it."""
+    live = sorted({ch - C.CH_OUT_1 for ch, _b, _k in out_bands})
+    per_o = {o: [t for t in out_bands if t[0] - C.CH_OUT_1 == o]
+             for o in live}
+    nb = max(len(v) for v in per_o.values())
+    cf_g, s_g = [], []
+    for o in live:
+        rows, srows = _band_rows(p, st, per_o[o], nb)
+        cf_g.append(torch.cat(rows))
+        s_g.append(torch.stack(srows))
+    scal = torch.zeros((len(live), 4), dtype=_I32,
+                       device=bufs[live[0]].device)
+    y, _, sF = q28_cascades(
+        torch.stack([bufs[o] for o in live]), torch.stack(cf_g),
+        torch.stack(s_g), scal, nb=nb, tc=static.block_size)
+    finals = []
+    for t in out_bands:
+        gi = live.index(t[0] - C.CH_OUT_1)
+        r = 2 * per_o[live[gi]].index(t)
+        finals.append((sF[gi, r], sF[gi, r + 1]))
+    st = _scatter_states(st, out_bands, finals)
+    for gi, o in enumerate(live):
+        bufs[o] = y[gi]
+    return st, bufs
+
+
+def process_q28(static: StaticChain, p, state, x, preset_mute=None):
+    """One segment of the RP2040 Q28 chain: the JAX package's
+    ``_process_q28``, word for word.
+
+    ``p``/``state``: the port's ChainParams/ChainState of tensors on the
+    device of ``x`` (int32 [n_packets, 2, block_size, B], s16 or s24 values
+    per ``static.bit_depth``).  ``preset_mute`` float32 [n_packets]
+    (default ones).  Both EQ scans go through the cascade kernel
+    (``kernels.eq_cuda.q28_cascades``), the crossfeed through its own
+    (``kernels.xf_cuda.xf_q28``) and the sub output through the PDM
+    kernel; on CPU tensors each runs its plain version.  The one float
+    region, the leveller's gain computer, is single IEEE operations and
+    the integer ``fmath`` polynomials, so the card and the CPU give the
+    same bits.
+
+    Returns (state', outputs); the input state is not modified."""
+    refuse(static)
+    Npkt, _, T, B = x.shape
+    Ttot = Npkt * T
+    nout = static.n_outputs
+    ns2 = static.n_spdif * 2
+    dev = x.device
+    master_bands, out_bands = _chain_structure(static)
+    if preset_mute is None:
+        preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
+    st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone())
+
+    # per-packet volume staging (usb_audio.c:975-980), Q15 [Npkt, 1]
+    pm_q15 = f32_to_i32(preset_mute * 32768.0 + 0.5).clamp(0, 32768)
+    vol_mul_master = q15_mul(q15_mul(p.vol_mul, pm_q15[:, None]),
+                             p.master_vol)
+
+    # ---- PASS 1: unpack + preamp (usb_audio.c:996-1015) ----
+    x2 = x.transpose(0, 1).reshape(2, Ttot, B)
+    raw = (x2 << 8) >> 2 if static.bit_depth == 24 else x2 << 14
+    del x2
+    bl = q28_mul(raw[0], p.unpack_gain[0])
+    br = q28_mul(raw[1], p.unpack_gain[1])
+    del raw
+
+    # ---- scan A: loudness + master EQ + leveller envelope ----
+    a_rms_q28 = one_minus = None
+    if static.leveller_on:
+        a_rms_q28 = f32_to_i32(p.lev[0] * float(1 << 28))
+        one_minus = C.Q28_ONE - a_rms_q28
+    if static.loudness_on or master_bands or static.leveller_on:
+        st, bl, br, env = _q28_master(static, p, st, bl, br, master_bands,
+                                      a_rms_q28, one_minus)
+
+    # ---- PASS 2.5 leveller block phase (leveller.c:274-389) ----
+    if static.leveller_on:
+        st = st._replace(lev_env=env[:, -1].clone())
+        env_f = env.to(_F32) * _INV_Q28                      # [2, Npkt, B]
+        a_att, a_rel = p.lev[1], p.lev[2]
+        thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
+        max_gain, makeup = p.lev[7], p.lev[8]
+        slope, inv_two_knee = p.lev[9], p.lev[10]
+        rms_sq = torch.maximum(env_f[0], env_f[1])
+        rms_db = 10.0 * fmath.log10_f32(rms_sq + _TINY)
+        half = knee * 0.5
+        d = thresh + half - rms_db
+        zero = torch.zeros_like(rms_db)
+        gc = torch.where(
+            rms_db > thresh + half, zero,
+            torch.where(rms_db >= thresh - half,
+                        slope * d * d * inv_two_knee,
+                        (thresh - rms_db) * slope))
+        gc = torch.minimum(gc + makeup, max_gain)
+        gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
+
+        # block-rate attack/release smoothing: the loop runs smooth_det
+        # only; the Q28 gains of all packets follow in one pass
+        count = torch.full((1,), float(T), dtype=_F32, device=dev)
+        pow_att = fmath.pow_f32(a_att, count)
+        pow_rel = fmath.pow_f32(a_rel, count)
+        gdb = st.lev_gain_db
+        gdbs = []
+        for k in range(Npkt):
+            alpha = torch.where(gc[k] < gdb, pow_att, pow_rel)
+            gdb = fmath.smooth_det(alpha, gdb, gc[k])
+            gdbs.append(gdb)
+        g_cur_p = f32_to_i32(fmath.exp10_f32(torch.stack(gdbs) * _INV20)
+                             * float(C.Q28_ONE))            # [Npkt, B]
+        g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
+        st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
+                         lev_gain_prev=g_prev_p[-1])
+
+        # interpolated gain g_prev + (int64(g_cur - g_prev) * i) / (T - 1)
+        # with C's truncating division (leveller.c:352), closed form over
+        # all packets and samples; a one-sample packet jumps to g_cur
+        if T == 1:
+            gains = g_cur_p.reshape(Ttot, B)
+        else:
+            diff = g_cur_p - g_prev_p                  # int32 wrap, as C
+            sign = 1 - 2 * (diff < 0).to(torch.int64)[:, None, :]
+            # |diff| in int64, so that diff = -2^31 gives 2^31
+            q = diff.to(torch.int64).abs()[:, None, :] * torch.arange(
+                T, dtype=torch.int64, device=dev)[None, :, None]
+            q = q.floor_divide_(T - 1).mul_(sign).add_(g_prev_p[:, None, :])
+            gains = wrap32(q).reshape(Ttot, B)
+            del diff, sign, q
+
+        if static.leveller_lookahead:
+            # time-ordered lookahead ring: the delayed stream is a window
+            # of concat(ring, segment)
+            comb_l = torch.cat([st.lev_la[0], bl], dim=0)
+            comb_r = torch.cat([st.lev_la[1], br], dim=0)
+            out_l, out_r = comb_l[:Ttot], comb_r[:Ttot]
+            st = st._replace(lev_la=torch.stack([comb_l[Ttot:],
+                                                 comb_r[Ttot:]]))
+        else:
+            out_l, out_r = bl, br
+        del bl, br
+
+        # limiter (leveller.c:369-379): float peak, Q28 gain cap
+        peak = torch.maximum((out_l.to(_F32) * _INV_Q28).abs(),
+                             (out_r.to(_F32) * _INV_Q28).abs())
+        max_g = f32_to_i32(fmath.det_div(
+            float(np.float32(C.LEVELLER_LIMITER_CEIL)), peak)
+            * float(C.Q28_ONE))
+        g_eff = torch.where(
+            (gains > C.Q28_ONE) & (peak > 0.0) & (max_g < gains),
+            max_g.clamp(min=C.Q28_ONE), gains)
+        del peak, max_g, gains
+        bl = q28_mul(out_l, g_eff)
+        br = q28_mul(out_r, g_eff)
+        del out_l, out_r, g_eff
+
+    # ---- PASS 3: master peaks, then the crossfeed kernel ----
+    peak_ml = bl.abs().amax(dim=0)
+    peak_mr = br.abs().amax(dim=0)
+    if static.crossfeed_on:
+        bl, br, s4 = xf_q28(bl.contiguous(), br.contiguous(), p.xf,
+                            torch.cat([st.xf_lp, st.xf_ap]))
+        st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
+
+    # ---- PASS 4: matrix (usb_audio.c:1075-1100).  q15_mul(x, 0) == 0,
+    # so the firmware's branches on zero gains all come to this sum ----
+    bufs = []
+    for o in range(nout):
+        if not static.output_enabled[o]:
+            bufs.append(torch.zeros_like(bl))
+            continue
+        bufs.append(q15_mul(bl, p.matrix_gain[0, o])
+                    + q15_mul(br, p.matrix_gain[1, o]))
+    del bl, br
+
+    # ---- PASS 5: per-output EQ ----
+    if out_bands:
+        st, bufs = _q28_outeq(static, p, st, bufs, out_bands)
+
+    # output gains (usb_audio.c:1203-1212): float multiply, then Q15
+    # apply per packet (a zero gain needs no branch: q15_mul(x, 0) == 0)
+    for o in range(nout):
+        if not static.output_enabled[o]:
+            continue
+        if static.output_mute[o]:
+            bufs[o] = torch.zeros_like(bufs[o])
+            continue
+        gain = f32_to_i32(p.out_gain[o] * vol_mul_master.to(_F32))
+        bufs[o] = q15_mul(bufs[o].reshape(Npkt, T, B),
+                          gain[:, :, None]).reshape(Ttot, B)
+
+    # delay lines (usb_audio.c:1213-1227)
+    if static.delayed_outputs:
+        D = static.delay_ring
+        rows = []
+        for k, o in enumerate(static.delayed_outputs):
+            bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
+                                           p.delay_samples[k], Ttot, D)
+            rows.append(ring_k)
+        st = st._replace(delay=torch.stack(rows))
+
+    # peaks / clip flags (Q28: u16 = peak >> 13, usb_audio.c:1239)
+    peaks = [peak_ml, peak_mr]
+    for o in range(ns2):
+        peaks.append(bufs[o].abs().amax(dim=0))
+    if static.output_enabled[nout - 1]:
+        peaks.append(bufs[nout - 1].abs().amax(dim=0))
+    else:
+        peaks.append(torch.zeros_like(peak_ml))
+    peaks = torch.stack(peaks)
+    clip = st.clip_flags
+    for chi in range(peaks.shape[0]):
+        ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
+        clip = clip | ((peaks[chi] > C.CLIP_THRESH_Q28).to(_I32) << ch_bit)
+    st = st._replace(clip_flags=clip)
+
+    # S/PDIF conversion (usb_audio.c:1244-1257)
+    s24 = []
+    for pair in range(static.n_spdif):
+        lch, rch = pair * 2, pair * 2 + 1
+        on = static.output_enabled[lch] or static.output_enabled[rch]
+        for chn in (lch, rch):
+            s24.append(q28_to_s24(bufs[chn]) if on else torch.zeros(
+                bufs[chn].shape, dtype=_I32, device=dev))
+    outputs = {"peaks": (peaks >> 13) & 0xFFFF}
+    if static.emit == "full":
+        outputs["out"] = _unflatten(torch.stack(bufs), Npkt, T)
+        outputs["s24"] = _unflatten(torch.stack(s24), Npkt, T)
+    else:
+        # int32 sums wrap, as the JAX package's do
+        outputs["s24_sum"] = torch.stack(
+            [v.sum(dim=0) for v in s24]).to(_I32)
+    del s24
+
+    if static.pdm_on:
+        st, words = pdm_segment(st, bufs[nout - 1])
+        if static.emit == "full":
+            outputs["pdm"] = words                  # [Ttot, 8, B] uint32 bits
+        else:
             outputs["pdm_sum"] = words.sum(dim=(0, 1),
                                            dtype=torch.int64) & 0xFFFFFFFF
     return st, outputs

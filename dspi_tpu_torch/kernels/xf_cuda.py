@@ -1,0 +1,90 @@
+"""The Q28 crossfeed: its plain PyTorch version and its kernel's wrapper.
+
+The stereo one-pole low-pass + allpass recurrence of the crossfeed
+(usb_audio.c:1064-1073), the JAX package's ``xf_body`` scan
+(chain/pipeline.py).  ``xf_q28`` launches ``csrc/xf_q28.cu`` on a CUDA
+tensor or raises; on a CPU tensor it runs ``xf_q28_plain``, a Python loop
+over samples vectorized over streams.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import LAUNCHES, build
+from ..core.qmath import q28_mul
+
+_I32 = torch.int32
+
+
+def _check(l, r, coef, s4):
+    for name, v in (("l", l), ("r", r), ("coef", coef), ("state", s4)):
+        if v.dtype != _I32:
+            raise TypeError(f"xf_q28 wants int32 {name}, got {v.dtype}")
+        if v.device != l.device:
+            raise ValueError(f"{name} on {v.device}, l on {l.device}")
+    if l.dim() != 2 or r.shape != l.shape or coef.shape != (3,) \
+            or s4.shape != (4, l.shape[1]):
+        raise ValueError(
+            f"xf_q28 wants l, r [T, B], coef [3], state [4, B]; got "
+            f"{tuple(l.shape)}, {tuple(r.shape)}, {tuple(coef.shape)}, "
+            f"{tuple(s4.shape)}")
+
+
+def xf_q28_plain(l, r, coef, s4):
+    """l, r int32 [T, B] Q28; coef int32 [3] = (lp_a0, lp_b1, ap_a); s4
+    int32 [4, B] = (lp L, lp R, ap L, ap R) -> (out_l, out_r, s4')."""
+    _check(l, r, coef, s4)
+    lp_a0, lp_b1, ap_a = coef.unbind(0)
+    lpL, lpR, apL, apR = s4.unbind(0)
+    out_l, out_r = torch.empty_like(l), torch.empty_like(r)
+    for t in range(l.shape[0]):
+        ml, mr = l[t], r[t]
+        lp_l = q28_mul(lp_a0, ml) + q28_mul(lp_b1, lpL)
+        lp_r = q28_mul(lp_a0, mr) + q28_mul(lp_b1, lpR)
+        ap_l = q28_mul(ap_a, lp_l) + apL
+        apL = lp_l - q28_mul(ap_a, ap_l)
+        ap_r = q28_mul(ap_a, lp_r) + apR
+        apR = lp_r - q28_mul(ap_a, ap_r)
+        lpL, lpR = lp_l, lp_r
+        out_l[t] = (ml - lp_l) + ap_r
+        out_r[t] = (mr - lp_r) + ap_l
+    return out_l, out_r, torch.stack([lpL, lpR, apL, apR])
+
+
+def _lib():
+    fn = build.load("xf_q28").dspi_xf_q28
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def xf_q28(l, r, coef, s4):
+    """The crossfeed over a segment (signature of ``xf_q28_plain``)."""
+    _check(l, r, coef, s4)
+    if l.device.type == "cpu":
+        return xf_q28_plain(l, r, coef, s4)
+    if l.device.type != "cuda":
+        raise ValueError(f"no crossfeed kernel for device {l.device}")
+    if not all(v.is_contiguous() for v in (l, r, coef, s4)):
+        raise ValueError("xf_q28 wants contiguous tensors")
+    T, B = l.shape
+    if T >= 2**31 or B >= 2**31:
+        raise ValueError(f"segment too large: {T} x {B}")
+    out_l, out_r = torch.empty_like(l), torch.empty_like(r)
+    if T == 0 or B == 0:
+        return out_l, out_r, s4.clone()
+    s_out = torch.empty_like(s4)
+    stream = torch.cuda.current_stream(l.device).cuda_stream
+    with torch.cuda.device(l.device):
+        rc = _lib()(l.data_ptr(), r.data_ptr(), coef.data_ptr(),
+                    s4.data_ptr(), out_l.data_ptr(), out_r.data_ptr(),
+                    s_out.data_ptr(), T, B, stream)
+    if rc != 0:
+        raise RuntimeError(f"crossfeed kernel launch failed: CUDA error {rc}")
+    LAUNCHES["xf_q28"] += 1
+    return out_l, out_r, s_out

@@ -1,54 +1,68 @@
 #!/usr/bin/env python
 """Where one full-width segment of the port's main path spends its time.
 
-    python3 profile_torch.py
+    python3 profile_torch.py [rp2350|rp2040]
 
-Runs the headline chain (RP2350, 48 kHz, full_chain_config, emit
-"reduced", PDM on) on one CUDA card at 16384 streams x 128 packets of 48
-samples, warms up, then traces one segment with torch.profiler (CPU and
-CUDA activity).  Prints the card, the segment's wall time, the number of
-device kernels and their summed time, the device's idle share (1 - kernel
-time / wall), and the ops with the most device time; writes the full
-table to chiprun_out/profile_main.txt.  Then times each stage of one more
-segment (synchronized before and after each stage).
+Runs the headline chain of the platform (default rp2350: the float chain;
+rp2040: the Q28 chain; 48 kHz, full_chain_config, emit "reduced", PDM on)
+on one CUDA card at 16384 streams x 128 packets of 48 samples, warms up,
+then traces one segment with torch.profiler (CPU and CUDA activity).
+Prints the card, the segment's wall time, the number of device kernels and
+their summed time, the device's idle share (1 - kernel time / wall), and
+the ops with the most device time; writes the full table to
+chiprun_out/profile_<platform>.txt.  Then times each stage of one more
+segment (synchronized before and after each call of a stage, so stages
+cannot overlap and the sum is slower than an unwrapped segment).
 
-Last, it counts the instructions of the PDM kernel's per-sample loop in
-the SASS of the built library (cuobjdump), by opcode, which checks the
-operation count that chip_smoke.py's bound for that kernel assumes; the
-kernel's SASS goes to chiprun_out/pdm_sass.txt.
+Last, it counts the instructions of each CUDA kernel's per-sample loop in
+the SASS of the built libraries (cuobjdump), by opcode and by pipe (the
+integer multiply-adds, IMAD*, issue to the FMA pipe; the other per-thread
+arithmetic to the integer ALU), which checks the operation counts that
+chip_smoke.py's bounds assume; the SASS goes to chiprun_out/<lib>_sass.txt.
 """
 
 from __future__ import annotations
 
-import re
 import subprocess
+import sys
 import time
 from pathlib import Path
 
 import torch
 
 STREAMS, PACKETS, BLOCK = 16384, 128, 48
-# SASS opcodes (before the first '.') that are not per-thread arithmetic
-_CONTROL = {"BRA", "BRX", "JMP", "CALL", "RET", "EXIT", "BSSY", "BSYNC",
-            "BPT", "NOP", "WARPSYNC", "BAR", "YIELD"}
-_MEMORY = {"LDG", "STG", "LDC", "LD", "ST", "LDS", "STS", "LDL", "STL"}
-_SASS_LINE = re.compile(
-    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+# (library, a piece of the kernel's mangled name, label): the cascade
+# kernel's two headline instantiations, <NB, LOUD, ENV>
+_LOOPS = (("pdm", "pdm_kernel", "pdm"),
+          ("eq_q28", "cascade_kernelILi10ELb1ELb1E", "eq master <10,1,1>"),
+          ("eq_q28", "cascade_kernelILi10ELb0ELb0E", "eq output <10,0,0>"),
+          ("xf_q28", "xf_kernel", "xf"))
 
 
-def stage_times(eng, x) -> dict:
-    """Wall milliseconds per stage of one segment.  Each stage is wrapped
-    with a synchronize before and after, so stages cannot overlap and
-    the sum is slower than an unwrapped segment."""
+def _stages(platform):
     from dspi_tpu_torch.chain import mxu, pipeline
+    from dspi_tpu_torch.core import fmath
 
-    stages = [(mxu, "chain_a", "loudness + master EQ (block products)"),
-              (mxu, "env_packet_ends", "leveller envelope"),
-              (mxu, "chain_b", "crossfeed + matrix + output EQ"),
-              (pipeline, "pdm_segment", "PDM (mode prologue + kernel)")]
+    if platform == "rp2350":
+        return [(mxu, "chain_a", "loudness + master EQ (block products)"),
+                (mxu, "env_packet_ends", "leveller envelope"),
+                (mxu, "chain_b", "crossfeed + matrix + output EQ"),
+                (pipeline, "pdm_segment", "PDM (mode prologue + kernel)")]
+    return [(pipeline, "q28_cascades", "Q28 cascade kernel (2 calls)"),
+            (pipeline, "xf_q28", "crossfeed kernel"),
+            (pipeline, "pdm_segment", "PDM (mode prologue + kernel)"),
+            (fmath, "smooth_det", "leveller packet loop (smooth_det)"),
+            (fmath, "det_div", "limiter reciprocal (det_div)"),
+            (pipeline, "q15_mul", "q15_mul (matrix, gains)"),
+            (pipeline, "q28_mul", "q28_mul (preamp, limiter)")]
+
+
+def stage_times(eng, x, platform) -> dict:
+    """Wall milliseconds per stage of one segment, summed over the stage's
+    calls."""
     times = {}
     saved = []
-    for mod, name, label in stages:
+    for mod, name, label in _stages(platform):
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
@@ -57,7 +71,8 @@ def stage_times(eng, x) -> dict:
             t = time.perf_counter()
             r = _fn(*a, **k)
             torch.cuda.synchronize()
-            times[_label] = 1e3 * (time.perf_counter() - t)
+            times[_label] = times.get(_label, 0.0) + 1e3 * (
+                time.perf_counter() - t)
             return r
         setattr(mod, name, timed)
     try:
@@ -69,47 +84,35 @@ def stage_times(eng, x) -> dict:
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    times["rest: unpack, leveller gain + limiter, gains, delays, peaks, "
-          "s24, sums"] = total - sum(times.values())
+    times["rest"] = total - sum(times.values())
     times["segment (synchronized stages)"] = total
     return times
 
 
-def pdm_loop_ops(out: Path) -> None:
-    """Print the opcode counts of the PDM kernel's sample loop (the longest
-    backward branch's body) in the SASS of the built library."""
+def loop_ops(out: Path) -> None:
+    """Print the opcode counts of each kernel's sample loop (the longest
+    backward branch's body) in the SASS of the built libraries."""
     from dspi_tpu_torch.kernels import build
 
-    build.load("pdm")
-    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build.lib_path("pdm"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    (out / "pdm_sass.txt").write_text(sass)
-    code = sass[sass.index("pdm_kernel"):]
-    ins = [(int(a, 16), op, args) for a, op, args in _SASS_LINE.findall(code)]
-    loops = [(addr, int(m.group(1), 16)) for addr, op, args in ins
-             if op.startswith("BRA") and (m := re.search(r"0x([0-9a-f]+)",
-                                                         args))
-             and int(m.group(1), 16) < addr]
-    end, head = max(loops, key=lambda lp: lp[0] - lp[1])
-    hist: dict[str, int] = {}
-    for addr, op, _ in ins:
-        if head <= addr <= end:
-            hist[op] = hist.get(op, 0) + 1
-    base = {op: op.split(".")[0] for op in hist}
-    thread = sum(n for op, n in hist.items()
-                 if base[op] not in _CONTROL | _MEMORY
-                 and not base[op].startswith(("U", "S2")))
-    top = sorted(hist.items(), key=lambda kv: -kv[1])[:16]
-    print(f"pdm kernel SASS: sample loop 0x{head:x}-0x{end:x}, "
-          f"{sum(hist.values())} instructions, {thread} per-thread "
-          f"arithmetic (not control, memory, uniform or special), STG "
-          f"{sum(n for op, n in hist.items() if base[op] == 'STG')}; "
-          f"by opcode {top}")
+    sass = {}
+    for lib, pattern, label in _LOOPS:
+        if lib not in sass:
+            sass[lib] = build.sass(lib)
+            (out / f"{lib}_sass.txt").write_text(sass[lib])
+        c = build.loop_counts(sass[lib], pattern)
+        top = sorted(c["hist"].items(), key=lambda kv: -kv[1])[:16]
+        print(f"{label} SASS: sample loop 0x{c['head']:x}-0x{c['end']:x}, "
+              f"{c['instructions']} instructions, {c['imad'] + c['alu']} "
+              f"per-thread arithmetic (not control, memory, uniform or "
+              f"special): IMAD* {c['imad']}, integer ALU {c['alu']} "
+              f"({c['alu_only']} of them ALU-only); LDG "
+              f"{c['ldg']}, STG {c['stg']}; by opcode {top}")
 
 
 def main() -> None:
+    platform = sys.argv[1] if len(sys.argv) > 1 else "rp2350"
+    if platform not in ("rp2350", "rp2040"):
+        raise SystemExit(f"unknown platform {platform}: rp2350 or rp2040")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     from torch.autograd import DeviceType
@@ -123,7 +126,7 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    eng = Engine(full_chain_config(Platform.RP2350), n_streams=STREAMS,
+    eng = Engine(full_chain_config(Platform(platform)), n_streams=STREAMS,
                  block_size=BLOCK, emit="reduced", pdm=True, pdm_fade=False,
                  device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -146,17 +149,17 @@ def main() -> None:
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "profile_main.txt").write_text(
+    (out / f"profile_{platform}.txt").write_text(
         f"card: {card}\nwall {wall * 1e3:.3f} ms\n{table}\n")
     print(f"card: {card}")
-    print(f"segment {STREAMS} x {PACKETS}x{BLOCK}: wall "
+    print(f"{platform} segment {STREAMS} x {PACKETS}x{BLOCK}: wall "
           f"{wall * 1e3:.3f} ms (profiled), {n_kernels} kernels, device "
           f"kernel time {dev_us / 1e3:.3f} ms, idle share "
           f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
-    for label, ms in stage_times(eng, x ^ 3).items():
+    for label, ms in stage_times(eng, x ^ 3, platform).items():
         print(f"stage {ms:10.3f} ms  {label}")
-    pdm_loop_ops(out)
+    loop_ops(out)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from dspi_tpu_torch.kernels import LAUNCHES, pdm_cuda
+from dspi_tpu_torch.kernels.eq import q28_cascades_plain
+from dspi_tpu_torch.kernels.eq_cuda import q28_cascades
 from dspi_tpu_torch.kernels.pdm import pdm_words_plain
+from dspi_tpu_torch.kernels.xf_cuda import xf_q28, xf_q28_plain
 
 
 @pytest.mark.cuda
@@ -44,3 +47,58 @@ def test_pdm_kernel_equals_plain(T, B):
     assert LAUNCHES["pdm"] == n0 + 1
     np.testing.assert_array_equal(got_w.cpu().numpy(), want_w.numpy())
     np.testing.assert_array_equal(got_s.cpu().numpy(), want_s.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_loud,has_env,nb,B", [
+    (False, False, 3, 197), (True, False, 2, 64), (True, True, 10, 4100),
+    (False, True, 0, 33), (True, True, 12, 1)])
+def test_eq_q28_kernel_equals_plain(has_loud, has_env, nb, B):
+    """The cascade kernel against the plain version: ragged stream counts,
+    every pair of loudness bypass flags, a different envelope alpha per
+    cascade; outputs, envelopes and states word for word."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    G, tc, T = 4, 48, 96
+    nr = (2 if has_loud else 0) + nb
+    rng = np.random.default_rng(7 + nb)
+    x = rng.integers(-2**31, 2**31, size=(G, T, B), dtype=np.int64)
+    cf = rng.integers(-(1 << 27), 1 << 27, size=(G, nr, 5)) >> 2
+    s0 = rng.integers(-(1 << 20), 1 << 20, size=(G, 2 * nr + has_env, B))
+    a_rms = 260000000 - 9999999 * np.arange(G)
+    scal = np.stack([np.arange(G) % 2, np.arange(G) // 2, a_rms,
+                     (1 << 28) - a_rms], axis=1)
+    args = [torch.from_numpy(v.astype(np.int32))
+            for v in (x, cf, s0, scal)]
+    kw = dict(nb=nb, has_loud=has_loud, has_env=has_env, tc=tc)
+    want = q28_cascades_plain(*args, **kw)
+    n0 = LAUNCHES["eq_q28"]
+    got = q28_cascades(*[a.cuda() for a in args], **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["eq_q28"] == n0 + 1
+    for name, g, w in zip(("y", "env", "state"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(96, 197), (1, 5), (48, 4100)])
+def test_xf_q28_kernel_equals_plain(T, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    rng = np.random.default_rng(40 + B)
+    l, r = (rng.integers(-2**31, 2**31, size=(T, B), dtype=np.int64)
+            for _ in range(2))
+    coef = rng.integers(-2**31, 2**31, size=3, dtype=np.int64)
+    s4 = rng.integers(-2**31, 2**31, size=(4, B), dtype=np.int64)
+    args = [torch.from_numpy(v.astype(np.int32)) for v in (l, r, coef, s4)]
+    want = xf_q28_plain(*args)
+    n0 = LAUNCHES["xf_q28"]
+    got = xf_q28(*[a.cuda() for a in args])
+    torch.cuda.synchronize()
+    assert LAUNCHES["xf_q28"] == n0 + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

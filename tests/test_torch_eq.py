@@ -1,0 +1,189 @@
+"""The port's Q28 cascade and crossfeed pieces against the JAX package.
+
+Held to: bit-exact, word for word.  Everything here is integer arithmetic
+(``fast_mul_q28`` partial products with int32 wrap-around), so any
+difference is a fault, not rounding.
+
+  * ``kernels.eq`` band steps vs ``dspi_tpu.chain.pipeline``'s;
+  * ``kernels.eq.q28_cascades_plain`` vs a ``lax.scan`` over the JAX band
+    steps (``tests/test_eq_pallas.py``'s reference), and, with
+    ``DSPI_TEST_SLOW`` set, vs the Pallas kernel in interpret mode;
+  * ``kernels.xf_cuda.xf_q28_plain`` vs a ``lax.scan`` of the JAX chain's
+    crossfeed step;
+  * the front doors on CPU tensors run the plain versions and count no
+    launch; what the port does not run raises, naming ROADMAP.md.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from dspi_tpu.chain.pipeline import _band_step_q28, _tdf2_q28_bypassable
+from dspi_tpu.core.qmath import q28_mul as jq28_mul
+from dspi_tpu_torch.kernels import LAUNCHES
+from dspi_tpu_torch.kernels.eq import (band_step_q28, q28_cascades_plain,
+                                       tdf2_q28_bypassable)
+from dspi_tpu_torch.kernels.eq_cuda import q28_cascades
+from dspi_tpu_torch.kernels.xf_cuda import xf_q28, xf_q28_plain
+
+from test_eq_pallas import _ref as scan_ref
+
+TC = 48
+# (has_loud, has_env, nb, G, B): test_eq_pallas.py's four flag cases, then
+# the headline master shape (loudness + 10 bands + envelope) at a ragged B
+CASES = [(False, False, 3, 2, 3), (True, False, 2, 2, 3), (True, True, 4, 2, 3),
+         (False, True, 0, 2, 3), (True, True, 10, 3, 5)]
+
+
+def _i32(rng, lo, hi, shape):
+    return rng.integers(lo, hi, size=shape, dtype=np.int64).astype(np.int32)
+
+
+def _cascade_inputs(seed, has_loud, has_env, nb, G, B, npkt=2):
+    """Inputs as tests/test_eq_pallas.py makes them, with bypass flags and
+    envelope alphas that differ between cascades."""
+    rng = np.random.default_rng(seed)
+    n_loud = 2 if has_loud else 0
+    S = 2 * (n_loud + nb) + (1 if has_env else 0)
+    x = _i32(rng, -(1 << 27), 1 << 27, (G, TC * npkt, B))
+    cf = _i32(rng, -(1 << 27), 1 << 27, (G, n_loud + nb, 5)) >> 2
+    s0 = _i32(rng, -(1 << 20), 1 << 20, (G, S, B))
+    a_rms = 260000000 - 9999999 * np.arange(G)
+    flags = [(0, 1), (1, 0), (1, 1), (0, 0)]
+    scal = np.array([[*flags[g], a_rms[g], (1 << 28) - a_rms[g]]
+                     for g in range(G)], np.int32)
+    return x, cf, s0, scal
+
+
+def _assert_same(got, want):
+    y, env, sF = got
+    np.testing.assert_array_equal(y.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(sF.numpy(), np.asarray(want[2]))
+    if want[1] is None:
+        assert env is None
+    else:
+        np.testing.assert_array_equal(env.numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("bypass", [False, True])
+def test_band_steps_match_jax(bypass):
+    """Full-range int32 words, so every product and sum wraps somewhere."""
+    rng = np.random.default_rng(5 + bypass)
+    cf = _i32(rng, -2**31, 2**31, (5, 4096))
+    s = _i32(rng, -2**31, 2**31, (2, 4096))
+    xin = _i32(rng, -2**31, 2**31, (4096,))
+    t = lambda a: torch.from_numpy(a)                         # noqa: E731
+    want = _band_step_q28(jnp.asarray(cf), (jnp.asarray(s[0]),
+                                            jnp.asarray(s[1])),
+                          jnp.asarray(xin))
+    got = band_step_q28(tuple(t(cf)), (t(s[0]), t(s[1])), t(xin))
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want = _tdf2_q28_bypassable(jnp.asarray(cf), (jnp.asarray(s[0]),
+                                                  jnp.asarray(s[1])),
+                                jnp.asarray(xin), bypass)
+    got = tdf2_q28_bypassable(tuple(t(cf)), (t(s[0]), t(s[1])), t(xin),
+                              torch.tensor(bypass))
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("has_loud,has_env,nb,G,B", CASES)
+def test_plain_cascade_matches_scan(has_loud, has_env, nb, G, B):
+    x, cf, s0, scal = _cascade_inputs(11 + nb, has_loud, has_env, nb, G, B)
+    want = scan_ref(jnp.asarray(x), jnp.asarray(cf), jnp.asarray(s0),
+                    jnp.asarray(scal), nb, has_loud, has_env, TC)
+    got = q28_cascades_plain(*map(torch.from_numpy, (x, cf, s0, scal)), nb=nb,
+                             has_loud=has_loud, has_env=has_env, tc=TC)
+    _assert_same(got, want)
+
+
+def test_plain_cascade_matches_pallas_interpret():
+    if not os.environ.get("DSPI_TEST_SLOW"):
+        pytest.skip("pallas interpret mode is slow on CPU; set "
+                    "DSPI_TEST_SLOW=1 to run")
+    from dspi_tpu.kernels.eq_pallas import q28_cascades as pallas_cascades
+
+    has_loud, has_env, nb, G, B = True, True, 4, 2, 256
+    x, cf, s0, scal = _cascade_inputs(3, has_loud, has_env, nb, G, B)
+    want = pallas_cascades(jnp.asarray(x), jnp.asarray(cf), jnp.asarray(s0),
+                           jnp.asarray(scal), nb=nb, has_loud=has_loud,
+                           has_env=has_env, tc=TC, bt=128, interpret=True)
+    got = q28_cascades_plain(*map(torch.from_numpy, (x, cf, s0, scal)), nb=nb,
+                             has_loud=has_loud, has_env=has_env, tc=TC)
+    _assert_same(got, want)
+
+
+def _xf_scan_ref(l, r, coef, s4):
+    """The JAX chain's crossfeed step (chain/pipeline.py ``xf_body``) under
+    lax.scan."""
+    lp_a0, lp_b1, ap_a = coef[0], coef[1], coef[2]
+
+    def body(c, xt):
+        lpL, lpR, apL, apR = c
+        ml, mr = xt
+        lp_l = jq28_mul(lp_a0, ml) + jq28_mul(lp_b1, lpL)
+        lp_r = jq28_mul(lp_a0, mr) + jq28_mul(lp_b1, lpR)
+        ap_l = jq28_mul(ap_a, lp_l) + apL
+        apL_n = lp_l - jq28_mul(ap_a, ap_l)
+        ap_r = jq28_mul(ap_a, lp_r) + apR
+        apR_n = lp_r - jq28_mul(ap_a, ap_r)
+        return ((lp_l, lp_r, apL_n, apR_n),
+                ((ml - lp_l) + ap_r, (mr - lp_r) + ap_l))
+
+    cF, (ol, orr) = lax.scan(body, tuple(s4), (l, r))
+    return ol, orr, jnp.stack(cF)
+
+
+@pytest.mark.parametrize("full_range", [False, True])
+def test_xf_plain_matches_jax_scan(full_range):
+    rng = np.random.default_rng(21 + full_range)
+    T, B = 96, 3
+    lim = 2**31 if full_range else 1 << 28
+    l, r = _i32(rng, -lim, lim, (T, B)), _i32(rng, -lim, lim, (T, B))
+    # BS2B-like coefficients, or any words at all
+    coef = (_i32(rng, -lim, lim, (3,)) if full_range else
+            np.array([19000000, 249000000, -180000000], np.int32))
+    s4 = _i32(rng, -(1 << 24), 1 << 24, (4, B))
+    want = _xf_scan_ref(*map(jnp.asarray, (l, r, coef, s4)))
+    got = xf_q28_plain(*map(torch.from_numpy, (l, r, coef, s4)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_front_doors_run_the_plain_versions_on_cpu():
+    x, cf, s0, scal = map(torch.from_numpy,
+                          _cascade_inputs(2, True, True, 3, 2, 3))
+    kw = dict(nb=3, has_loud=True, has_env=True, tc=TC)
+    before = dict(LAUNCHES)
+    a = q28_cascades(x, cf, s0, scal, **kw)
+    b = q28_cascades_plain(x, cf, s0, scal, **kw)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    l, r = x[0], x[1]
+    coef = torch.tensor([19000000, 249000000, -180000000], dtype=torch.int32)
+    s4 = torch.zeros((4, 3), dtype=torch.int32)
+    for u, v in zip(xf_q28(l, r, coef, s4), xf_q28_plain(l, r, coef, s4)):
+        assert torch.equal(u, v)
+    assert dict(LAUNCHES) == before
+
+
+def test_cascade_refusals():
+    x, cf, s0, scal = map(torch.from_numpy,
+                          _cascade_inputs(2, False, True, 2, 2, 3))
+    kw = dict(nb=2, has_env=True, tc=TC)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8"):
+        q28_cascades(x, cf, s0, scal, sched=(44, 45), **kw)
+    lane_cf = cf[..., None].expand(2, 2, 5, 3).contiguous()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
+        q28_cascades(x, lane_cf, s0, scal, **kw)
+    with pytest.raises(ValueError, match="whole packets"):
+        q28_cascades(x[:, :50], cf, s0, scal, **kw)
+    with pytest.raises(ValueError, match="s0 must be"):
+        q28_cascades(x, cf, s0[:, :4], scal, **kw)
+    with pytest.raises(TypeError):
+        q28_cascades(x.long(), cf, s0, scal, **kw)

@@ -135,10 +135,13 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import dspi_tpu_torch, dspi_tpu_torch.chain\n"
         "import dspi_tpu_torch.kernels.pdm_cuda, dspi_tpu_torch.configs\n"
+        "import dspi_tpu_torch.kernels.eq_cuda, dspi_tpu_torch.kernels.xf_cuda\n"
+        "import dspi_tpu_torch.kernels.eq\n"
         "from dspi_tpu_torch.chain import Engine\n"
         "from dspi_tpu_torch.configs import full_chain_config\n"
         "from dspi_tpu_torch import Platform\n"
         "Engine(full_chain_config(Platform.RP2350), 2, device='cpu')\n"
+        "Engine(full_chain_config(Platform.RP2040), 2, device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dspi_tpu' or m.startswith('dspi_tpu.')]\n"
         "print(bad)\n")
