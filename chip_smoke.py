@@ -19,8 +19,13 @@ Phases (each prints one line; any failure exits non-zero):
      packets, (loudness, envelope, bands) = (no, no, 3), (yes, no, 2),
      (no, yes, 0), (yes, yes, 10), (no, no, 10), bypass flags and envelope
      alphas that differ per cascade; outputs, envelopes and states equal
-     word for word
-  5. Q28 crossfeed kernel vs its plain version, the same way
+     word for word.  Then the same five cases in each of the kernel's other
+     modes: per-lane coefficients (lane_cf) with coefficients, bypass flags
+     (mixed within a warp) and alphas that differ lane by lane; a periodic
+     44/45 schedule; a schedule with a 1-sample packet; lane_cf and a
+     schedule together
+  5. Q28 crossfeed kernel vs its plain version, the same way, with [3] and
+     per-lane [3, B] coefficients
   6. the float main path at full width: Engine on the headline RP2350
      chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
      samples with state carried and a fresh input each (x ^ i); launch
@@ -38,8 +43,21 @@ Phases (each prints one line; any failure exits non-zero):
      against the plain version run on the CPU over 128 of its streams
   9. card vs CPU on the Q28 chain at 8 streams, 16- and 24-bit: every
      output word and every state word equal
- 10. one JSON line {"kernels": [...]} for every kernel of the port
- 11. last line: {"ok": true, "device": {...}}
+ 10. the multi-tenant path at full width: HeteroServer over 8 configs of
+     one structure (hetero_variants) scattered over 16384 streams, 48 kHz,
+     the same geometry; its cascade calls run lane_cf.  Then the 44.1 kHz
+     path: Engine on the RP2040 headline chain at 44.1 kHz, 16384 streams,
+     130 packets on the 44/45 cadence (5733 samples); its cascade calls run
+     the schedule mode.  Each as phase 8 (warm-up, 4 chained segments,
+     launches per segment exactly 2 cascade, 1 crossfeed, 1 PDM, each call
+     of one more segment timed alone and held against the plain version
+     on 128 streams), with the padding waste for the server
+ 11. card vs CPU on both: a HeteroServer of 3 configs over 24 scattered
+     streams, 2 segments with an update_group between; a 44.1 kHz Engine
+     at 8 streams, 2 segments; every output word and every state word equal
+ 12. one JSON line {"kernels": [...]} for every kernel of the port and each
+     mode of the cascade kernel
+ 13. last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports nothing of JAX or of the JAX package.
@@ -252,63 +270,24 @@ def phase_pdm(dev) -> dict:
 
 
 def phase_main(dev, card: str) -> dict:
+    """The float main path at full width (drive_path)."""
     from dspi_tpu_torch import Platform
     from dspi_tpu_torch.chain import Engine
     from dspi_tpu_torch.configs import full_chain_config
-    from dspi_tpu_torch.kernels import LAUNCHES
 
     t0 = time.perf_counter()
     eng = Engine(full_chain_config(Platform.RP2350, RATE), n_streams=STREAMS,
                  block_size=BLOCK, emit="reduced", pdm=True, pdm_fade=False,
                  device=dev)
-    setup_s = time.perf_counter() - t0
+    print(f"main path: {STREAMS} streams x {PACKETS}x{BLOCK} samples, "
+          f"{SEGMENTS} chained segments; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     gen = torch.Generator(device=dev).manual_seed(7)
     x = torch.randint(-16000, 16000, (PACKETS, 2, BLOCK, STREAMS),
                       generator=gen, dtype=torch.int32, device=dev)
-    eng.process(x ^ SEGMENTS)                      # warm-up segment
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    for k in list(LAUNCHES):
-        LAUNCHES[k] = 0
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(SEGMENTS + 1)]
-    outs = []
-    h0 = time.perf_counter()
-    ev[0].record()
-    for i in range(SEGMENTS):
-        outs.append(eng.process(x ^ i))
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - h0
-    launches = dict(LAUNCHES)
-
-    seg_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(SEGMENTS)]
-    if launches.get("pdm", 0) != SEGMENTS:
-        fail(f"PDM kernel launched {launches.get('pdm', 0)} times in "
-             f"{SEGMENTS} segments")
-    for i, out in enumerate(outs):
-        if set(out) != {"peaks", "s24_sum", "pdm_sum"}:
-            fail(f"segment {i}: outputs {sorted(out)}")
-        if out["peaks"].shape != (11, STREAMS) or not (
-                (out["peaks"] >= 0) & (out["peaks"] <= 32767)).all():
-            fail(f"segment {i}: peaks out of range")
-        if not out["pdm_sum"].ne(0).any() or not out["s24_sum"].ne(0).any():
-            fail(f"segment {i}: silent outputs")
-    for f, v in zip(eng.state._fields, eng.state):
-        if v is not None and v.is_floating_point() and \
-                not torch.isfinite(v).all():
-            fail(f"state {f} not finite")
-    audio_s = STREAMS * PACKETS * BLOCK / RATE
-    mean_ms = sum(seg_ms) / SEGMENTS
-    rtf = audio_s / (mean_ms / 1e3)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"main path: {STREAMS} streams x {PACKETS}x{BLOCK} samples, "
-          f"{SEGMENTS} chained segments: per segment "
-          f"{[round(m, 3) for m in seg_ms]} ms (CUDA events), mean "
-          f"{mean_ms:.3f} ms, host wall {1e3 * wall / SEGMENTS:.3f} ms; "
-          f"RTF {rtf:.1f}x; peak memory {peak_gb:.2f} GB; setup "
-          f"{setup_s:.1f} s; launches {launches}; card {card}", flush=True)
-    return launches
+    return drive_path(dev, card, "main path", eng, x,
+                      STREAMS * PACKETS * BLOCK / RATE, {"pdm": 1}, 11,
+                      peak_max=32767)["launches"]
 
 
 def phase_card_vs_cpu(dev) -> None:
@@ -417,6 +396,73 @@ def phase_eq(dev) -> dict:
             "kernel_ms_at_plain_shape": kern_ms}
 
 
+# the cascade kernel's other modes: (lane_cf, schedule); SCHED is periodic
+# (the 44/45 cadence), SCHED1 is not and has a 1-sample packet
+SCHED, SCHED1 = (44, 45, 44, 45), (44, 1, 45, 7)
+EQ_MODES = {"lane_cf": (True, None), "sched": (False, SCHED),
+            "sched_1": (False, SCHED1), "lane_cf+sched": (True, SCHED1)}
+
+
+def phase_eq_modes(dev) -> dict:
+    """Cascade kernel vs its plain version on the card in the per-lane and
+    schedule modes, every flag case of EQ_CASES in each; returns the
+    (plain ms, kernel ms) of the loudness + 10 bands + envelope case per
+    mode."""
+    from dspi_tpu_torch.kernels.eq import q28_cascades_plain
+    from dspi_tpu_torch.kernels.eq_cuda import q28_cascades
+
+    G, B = 4, 4100
+    gen = torch.Generator(device=dev).manual_seed(31)
+    times = {}
+    for mode, (lane, sched) in EQ_MODES.items():
+        T = sum(sched) if sched else 2 * BLOCK
+        if lane:
+            # bypass flags that differ lane by lane, so warps mix them
+            a_rms = _rand_i32(gen, 200000000, 268000000, (G, B), dev)
+            scal = torch.stack([_rand_i32(gen, 0, 2, (G, B), dev),
+                                _rand_i32(gen, 0, 2, (G, B), dev), a_rms,
+                                (1 << 28) - a_rms], dim=1)
+        else:
+            a_rms = [260000000 - 9999999 * g for g in range(G)]
+            scal = torch.tensor([[g % 2, g // 2, a_rms[g],
+                                  (1 << 28) - a_rms[g]] for g in range(G)],
+                                dtype=torch.int32, device=dev)
+        for has_loud, has_env, nb in EQ_CASES:
+            nr = (2 if has_loud else 0) + nb
+            x = _rand_i32(gen, -(1 << 27), 1 << 27, (G, T, B), dev)
+            cf = _rand_i32(gen, -(1 << 27), 1 << 27,
+                           (G, nr, 5, B) if lane else (G, nr, 5), dev) >> 2
+            s0 = _rand_i32(gen, -(1 << 20), 1 << 20,
+                           (G, 2 * nr + int(has_env), B), dev)
+            kw = dict(nb=nb, has_loud=has_loud, has_env=has_env, tc=BLOCK,
+                      sched=sched)
+            got = q28_cascades(x, cf, s0, scal, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            want = q28_cascades_plain(x, cf, s0, scal, **kw)
+            ev[1].record()
+            ev[2].record()
+            q28_cascades(x, cf, s0, scal, **kw)
+            ev[3].record()
+            torch.cuda.synchronize()
+            if (has_loud, has_env, nb) == (True, True, 10):
+                times[mode] = (ev[0].elapsed_time(ev[1]),
+                               ev[2].elapsed_time(ev[3]))
+            for name, u, v in zip(("y", "env", "state"), got, want):
+                if (u is None) != (v is None) or (
+                        u is not None and not torch.equal(u, v)):
+                    fail(f"cascade kernel != plain version ({name}) in mode "
+                         f"{mode} for loudness={has_loud} "
+                         f"envelope={has_env} nb={nb}")
+    print(f"eq_q28 modes: kernel == plain on {G} cascades x {B} streams in "
+          f"modes {list(EQ_MODES)} (schedules {SCHED}, {SCHED1}) for every "
+          f"case of {list(EQ_CASES)}; plain / kernel ms, loudness + 10 bands "
+          f"+ envelope: "
+          f"{ {m: [round(v, 3) for v in t] for m, t in times.items()} }",
+          flush=True)
+    return times
+
+
 def phase_xf(dev) -> dict:
     """Crossfeed kernel vs its plain version on the card, word for word,
     over two chained segments."""
@@ -428,8 +474,9 @@ def phase_xf(dev) -> dict:
     plain_ms = kern_ms = 0.0
     for seg, coef in enumerate((
             [19000000, 249000000, -180000000],                 # BS2B-like
-            _rand_i32(gen, -2**31, 2**31 - 1, (3,), dev).tolist())):
-        coef = torch.tensor(coef, dtype=torch.int32, device=dev)
+            _rand_i32(gen, -2**31, 2**31 - 1, (3,), dev).tolist(),
+            _rand_i32(gen, -2**31, 2**31 - 1, (3, B), dev))):  # per lane
+        coef = torch.as_tensor(coef, dtype=torch.int32, device=dev)
         l, r = (_rand_i32(gen, -(1 << 28), 1 << 28, (T, B), dev)
                 for _ in range(2))
         got = xf_q28(l, r, coef, s_kern)             # loads the kernel
@@ -441,14 +488,15 @@ def phase_xf(dev) -> dict:
         xf_q28(l, r, coef, s_kern)
         ev[3].record()
         torch.cuda.synchronize()
-        plain_ms += ev[0].elapsed_time(ev[1]) / 2
-        kern_ms += ev[2].elapsed_time(ev[3]) / 2
+        plain_ms += ev[0].elapsed_time(ev[1]) / 3
+        kern_ms += ev[2].elapsed_time(ev[3]) / 3
         if not all(torch.equal(u, v) for u, v in zip(got, want)):
             fail(f"crossfeed kernel != plain version in segment {seg}")
         s_plain, s_kern = want[2], got[2]
-    print(f"xf_q28: kernel == plain on {B} streams x 2 chained segments of "
-          f"{T} samples; plain {plain_ms:.1f} ms / kernel {kern_ms:.3f} ms "
-          f"per segment there", flush=True)
+    print(f"xf_q28: kernel == plain on {B} streams x 3 chained segments of "
+          f"{T} samples, the last with per-lane [3, B] coefficients; plain "
+          f"{plain_ms:.1f} ms / kernel {kern_ms:.3f} ms per segment there",
+          flush=True)
     return {"name": "xf_q28", "route": "cuda",
             "source": "dspi_tpu_torch/kernels/csrc/xf_q28.cu",
             "replaces": "dspi_tpu/chain/pipeline.py:1072 (a lax.scan, "
@@ -460,16 +508,23 @@ def phase_xf(dev) -> dict:
 
 def _eq_work(a, k) -> tuple[dict, int]:
     """(operations, bytes) of one cascade call, from its arguments and the
-    SASS of the template instance it launches."""
+    SASS of the template instance it launches.  Per-lane (lane_cf) calls
+    read their coefficient rows and scalars per stream, and a per-lane
+    bypass is a select, so no work is skipped there."""
     x, cf, s0, scal = a
     G, T, B = x.shape
     loud, env = bool(k.get("has_loud")), bool(k.get("has_env"))
-    if loud and bool((scal[:, :2] != 0).any()):
+    lane = cf.dim() == 4
+    if loud and not lane and bool((scal[:, :2] != 0).any()):
         fail("a bypassed loudness filter skips work the SASS count holds")
-    inst = f"cascade_kernelILi{k['nb']}ELb{int(loud)}ELb{int(env)}E"
+    inst = (f"cascade_kernelILi{k['nb']}ELb{int(loud)}ELb{int(env)}"
+            f"ELb{int(lane)}E")
     mul = MUL_PER_BAND * cf.shape[1] + (MUL_PER_ENV if env else 0)
-    nbytes = 4 * (2 * x.numel() + (G * (T // k["tc"]) * B if env else 0)
-                  + 2 * s0.numel() + cf.numel() + scal.numel())
+    sched = k.get("sched")
+    npkt = len(sched) if sched else T // k["tc"]
+    nbytes = 4 * (2 * x.numel() + (G * npkt * B if env else 0)
+                  + 2 * s0.numel() + cf.numel() + scal.numel()
+                  + (npkt if sched and env else 0))
     return work(sample_ops("eq_q28", inst, 1), mul, G * T * B), nbytes
 
 
@@ -513,23 +568,17 @@ def bound(ops: dict, nbytes) -> tuple[float, str, str]:
             "operations" if t_ops >= t_bytes else "bytes", text)
 
 
-def phase_q28_main(dev, card: str, bit_depth: int, record: bool) -> dict:
-    """The Q28 main path at full width; with ``record``, then each cascade
-    and crossfeed call of one more segment, timed alone on its own
-    arguments."""
-    from dspi_tpu_torch import Platform
-    from dspi_tpu_torch.chain import Engine, pipeline
-    from dspi_tpu_torch.configs import full_chain_config
+def drive_path(dev, card: str, label: str, eng, x, audio_s: float,
+               want: dict, n_peaks: int, peak_max: int = 0xFFFF) -> dict:
+    """A main path at full width: one warm-up segment, then SEGMENTS
+    chained segments with a fresh input each (x ^ i), launch counts set to
+    0 just before and read just after.  Fails unless the launches are
+    exactly ``want`` per segment and the outputs are sane (``n_peaks``
+    channels of peaks in 0..``peak_max``, sums not all zero, float state
+    finite).  ``audio_s``: the audio-seconds one segment carries (the RTF
+    counts real streams)."""
     from dspi_tpu_torch.kernels import LAUNCHES
 
-    t0 = time.perf_counter()
-    eng = Engine(full_chain_config(Platform.RP2040, RATE), n_streams=STREAMS,
-                 block_size=BLOCK, bit_depth=bit_depth, emit="reduced",
-                 pdm=True, pdm_fade=False, device=dev)
-    setup_s = time.perf_counter() - t0
-    lim = 1 << (bit_depth - 2)
-    gen = torch.Generator(device=dev).manual_seed(19 + bit_depth)
-    x = _rand_i32(gen, -lim, lim, (PACKETS, 2, BLOCK, STREAMS), dev)
     eng.process(x ^ SEGMENTS)                      # warm-up segment
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -547,33 +596,40 @@ def phase_q28_main(dev, card: str, bit_depth: int, record: bool) -> dict:
     wall = time.perf_counter() - h0
     launches = {k: n for k, n in LAUNCHES.items() if n}
 
-    want = {"eq_q28": 2 * SEGMENTS, "xf_q28": SEGMENTS, "pdm": SEGMENTS}
+    want = {k: n * SEGMENTS for k, n in want.items()}
     if launches != want:
-        fail(f"Q28 path ({bit_depth}-bit) launched {launches} in {SEGMENTS} "
-             f"segments, not {want}")
+        fail(f"{label} launched {launches} in {SEGMENTS} segments, not "
+             f"{want}")
+    B = x.shape[-1]
     for i, out in enumerate(outs):
         if set(out) != {"peaks", "s24_sum", "pdm_sum"}:
-            fail(f"Q28 segment {i}: outputs {sorted(out)}")
-        if out["peaks"].shape != (7, STREAMS) or not (
-                (out["peaks"] >= 0) & (out["peaks"] <= 0xFFFF)).all():
-            fail(f"Q28 segment {i}: peaks out of range")
+            fail(f"{label} segment {i}: outputs {sorted(out)}")
+        if out["peaks"].shape != (n_peaks, B) or not (
+                (out["peaks"] >= 0) & (out["peaks"] <= peak_max)).all():
+            fail(f"{label} segment {i}: peaks out of range")
         if not out["pdm_sum"].ne(0).any() or not out["s24_sum"].ne(0).any():
-            fail(f"Q28 segment {i}: silent outputs")
-    if not torch.isfinite(eng.state.lev_gain_db).all():
-        fail("Q28 state lev_gain_db not finite")
+            fail(f"{label} segment {i}: silent outputs")
+    for f, v in zip(eng.state._fields, eng.state):
+        if v is not None and v.is_floating_point() and \
+                not torch.isfinite(v).all():
+            fail(f"{label}: state {f} not finite")
     seg_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(SEGMENTS)]
     mean_ms = sum(seg_ms) / SEGMENTS
-    rtf = STREAMS * PACKETS * BLOCK / RATE / (mean_ms / 1e3)
+    rtf = audio_s / (mean_ms / 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"Q28 main path ({bit_depth}-bit): {STREAMS} streams x "
-          f"{PACKETS}x{BLOCK} samples, {SEGMENTS} chained segments: per "
-          f"segment {[round(m, 3) for m in seg_ms]} ms (CUDA events), mean "
-          f"{mean_ms:.3f} ms, host wall {1e3 * wall / SEGMENTS:.3f} ms; RTF "
-          f"{rtf:.1f}x; peak memory {peak_gb:.2f} GB; setup {setup_s:.1f} "
-          f"s; launches {launches}; card {card}", flush=True)
-    result = {"launches": launches}
-    if not record:
-        return result
+    print(f"{label}: per segment {[round(m, 3) for m in seg_ms]} ms (CUDA "
+          f"events), mean {mean_ms:.3f} ms, host wall "
+          f"{1e3 * wall / SEGMENTS:.3f} ms; RTF {rtf:.1f}x; peak memory "
+          f"{peak_gb:.2f} GB; launches {launches}; card {card}", flush=True)
+    return {"launches": launches, "seg_ms": seg_ms, "mean_ms": mean_ms,
+            "rtf": rtf, "peak_gb": peak_gb}
+
+
+def record_calls(eng, x, label: str) -> list:
+    """Each cascade and crossfeed call of one more segment, timed alone on
+    its own arguments beside its bound, then held at its full shape against
+    the plain version on the CPU over 128 of its streams."""
+    from dspi_tpu_torch.chain import pipeline
 
     calls = []
     saved = pipeline.q28_cascades, pipeline.xf_q28
@@ -596,18 +652,20 @@ def phase_q28_main(dev, card: str, bit_depth: int, record: bool) -> dict:
         if kind == "eq":
             ops, nbytes = _eq_work(a, k)
             extra = {"nb": k["nb"], "has_loud": k.get("has_loud", False),
-                     "has_env": k.get("has_env", False)}
+                     "has_env": k.get("has_env", False),
+                     "lane_cf": a[1].dim() == 4,
+                     "sched": bool(k.get("sched"))}
         else:
             T, B = a[0].shape
             ops = work(sample_ops("xf_q28", "xf_kernel", 2), MUL_XF, T * B)
-            nbytes = 4 * (4 * T * B + 8 * B + 3)
-            extra = {}
+            nbytes = 4 * (4 * T * B + 8 * B + a[2].numel())
+            extra = {"lane_cf": a[2].dim() == 2}
         bound_ms, by, text = bound(ops, nbytes)
         rows.append({"kind": kind, "shape": list(a[0].shape), "ms": ms,
                      "bound_ms": bound_ms, "bound_by": by, "ops": ops,
                      "bytes": nbytes, "work": text, **extra})
     if [r["kind"] for r in rows] != ["eq", "xf", "eq"]:
-        fail(f"Q28 segment made calls {[r['kind'] for r in rows]}")
+        fail(f"{label} segment made calls {[r['kind'] for r in rows]}")
     for r in rows:
         print(f"  {r['kind']} {r['shape']}: kernel {r['ms']:.3f} ms, bound "
               f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['work']})",
@@ -618,19 +676,109 @@ def phase_q28_main(dev, card: str, bit_depth: int, record: bool) -> dict:
               f"path's arguments, at full length, on streams "
               f"{r['checked_streams']} (plain on the CPU "
               f"{r['plain_cpu_s']:.1f} s)", flush=True)
-    result["calls"] = rows
+    return rows
+
+
+def phase_q28_main(dev, card: str, bit_depth: int, record: bool) -> dict:
+    """The Q28 main path at full width; with ``record``, then each cascade
+    and crossfeed call of one more segment, timed alone on its own
+    arguments."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+
+    t0 = time.perf_counter()
+    eng = Engine(full_chain_config(Platform.RP2040, RATE), n_streams=STREAMS,
+                 block_size=BLOCK, bit_depth=bit_depth, emit="reduced",
+                 pdm=True, pdm_fade=False, device=dev)
+    print(f"Q28 main path ({bit_depth}-bit): {STREAMS} streams x "
+          f"{PACKETS}x{BLOCK} samples, {SEGMENTS} chained segments; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lim = 1 << (bit_depth - 2)
+    gen = torch.Generator(device=dev).manual_seed(19 + bit_depth)
+    x = _rand_i32(gen, -lim, lim, (PACKETS, 2, BLOCK, STREAMS), dev)
+    result = drive_path(dev, card, f"Q28 main path ({bit_depth}-bit)", eng, x,
+                        STREAMS * PACKETS * BLOCK / RATE,
+                        {"eq_q28": 2, "xf_q28": 1, "pdm": 1}, 7)
+    if record:
+        result["calls"] = record_calls(eng, x, "Q28 main path")
+    return result
+
+
+# the 44.1 kHz path's schedule: 13 ten-millisecond groups of the 44/45
+# cadence, 130 packets, 5733 samples (bench_stages.py sched441)
+SCHED441 = ((44,) * 9 + (45,)) * 13
+HETERO_CONFIGS = 8
+
+
+def phase_hetero(dev, card: str) -> dict:
+    """The multi-tenant path at full width: HeteroServer over 8 configs of
+    one structure scattered over 16384 streams (bench_stages.py hetero)."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import HeteroServer
+    from dspi_tpu_torch.configs import hetero_variants
+
+    t0 = time.perf_counter()
+    ids = np.random.default_rng(5).integers(0, HETERO_CONFIGS, STREAMS)
+    srv = HeteroServer(hetero_variants(HETERO_CONFIGS, Platform.RP2040), ids,
+                       block_size=BLOCK, emit="reduced", pdm=True,
+                       pdm_fade=False, device=dev)
+    lanes = srv.grouped.n_groups * srv.grouped.streams_per_group
+    print(f"Q28 hetero path: {HETERO_CONFIGS} configs over {STREAMS} "
+          f"streams ({lanes} lanes, padding waste {srv.padding_waste:.4f}) x "
+          f"{PACKETS}x{BLOCK} samples, {SEGMENTS} chained segments; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
+    result = drive_path(dev, card, "Q28 hetero path", srv, x,
+                        STREAMS * PACKETS * BLOCK / RATE,
+                        {"eq_q28": 2, "eq_q28_lane_cf": 2, "xf_q28": 1,
+                         "pdm": 1}, 7)
+    result.update(padding_waste=srv.padding_waste, lanes=lanes,
+                  calls=record_calls(srv, x, "Q28 hetero path"))
+    if not all(c["lane_cf"] for c in result["calls"] if c["kind"] == "eq"):
+        fail("Q28 hetero path: a cascade call did not run per lane")
+    return result
+
+
+def phase_44k1(dev, card: str) -> dict:
+    """The 44.1 kHz path at full width: the RP2040 headline chain on the
+    44/45 packet cadence (bench_stages.py sched441)."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+
+    t0 = time.perf_counter()
+    eng = Engine(full_chain_config(Platform.RP2040, 44100.0),
+                 n_streams=STREAMS, schedule=SCHED441, emit="reduced",
+                 pdm=True, pdm_fade=False, device=dev)
+    ttot = sum(SCHED441)
+    print(f"Q28 44.1 kHz path: {STREAMS} streams x {len(SCHED441)} packets "
+          f"({ttot} samples), {SEGMENTS} chained segments; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = _rand_i32(gen, -16000, 16000, (2, ttot, STREAMS), dev)
+    result = drive_path(dev, card, "Q28 44.1 kHz path", eng, x,
+                        STREAMS * ttot / 44100.0,
+                        {"eq_q28": 2, "eq_q28_sched": 2, "xf_q28": 1,
+                         "pdm": 1}, 7)
+    result["calls"] = record_calls(eng, x, "Q28 44.1 kHz path")
+    if not all(c["sched"] for c in result["calls"] if c["kind"] == "eq"):
+        fail("Q28 44.1 kHz path: a cascade call ran without the schedule")
     return result
 
 
 def check_path_call(kind, fn, a, k) -> dict:
-    """One recorded call of the main path: the kernel at the path's own
+    """One recorded call of a main path: the kernel at the path's own
     shape, held against the plain version run on the CPU over the first
-    and the last 64 streams of the same arguments, every word equal."""
+    and the last 64 streams of the same arguments (per-lane coefficients
+    cut to the same lanes), every word equal."""
     from dspi_tpu_torch.kernels.eq import q28_cascades_plain
     from dspi_tpu_torch.kernels.xf_cuda import xf_q28_plain
 
     B = a[0].shape[-1]
-    idx = torch.cat([torch.arange(64), torch.arange(B - 64, B)]).to(a[0].device)
+    idx = torch.cat([torch.arange(64),
+                     torch.arange(B - 64, B)]).to(a[0].device)
     got = fn(*a, **k)
 
     def cut(v):
@@ -639,11 +787,16 @@ def check_path_call(kind, fn, a, k) -> dict:
     t0 = time.perf_counter()
     if kind == "eq":
         x, cf, s0, scal = a
-        want = q28_cascades_plain(cut(x), cf.cpu(), cut(s0), scal.cpu(), **k)
+        lane = cf.dim() == 4
+        want = q28_cascades_plain(cut(x), cut(cf) if lane else cf.cpu(),
+                                  cut(s0), cut(scal) if lane else scal.cpu(),
+                                  **k)
         names = ("y", "env", "state")
     else:
         l, r, coef, s4 = a
-        want = xf_q28_plain(cut(l), cut(r), coef.cpu(), cut(s4))
+        want = xf_q28_plain(cut(l), cut(r),
+                            cut(coef) if coef.dim() == 2 else coef.cpu(),
+                            cut(s4))
         names = ("left", "right", "state")
     plain_s = time.perf_counter() - t0
     for name, u, v in zip(names, got, want):
@@ -653,6 +806,19 @@ def check_path_call(kind, fn, a, k) -> dict:
                  f"path's arguments {list(a[0].shape)} {k}")
     return {"checked_streams": f"0-63 and {B - 64}-{B - 1}",
             "plain_cpu_s": plain_s, "equal_to_plain_at_path_shape": True}
+
+
+def _same_words(label: str, gpu: dict, cpu: dict) -> None:
+    for k in cpu:
+        if not torch.equal(gpu[k].cpu(), cpu[k]):
+            fail(f"{label}: {k} differs")
+
+
+def _same_state(label: str, card_state, cpu_state) -> None:
+    for f, g, c in zip(cpu_state._fields, card_state, cpu_state):
+        if (g is None) != (c is None) or (
+                g is not None and not torch.equal(g.cpu(), c)):
+            fail(f"{label}: state {f} differs")
 
 
 def phase_q28_card_vs_cpu(dev) -> None:
@@ -672,21 +838,71 @@ def phase_q28_card_vs_cpu(dev) -> None:
         for seg in range(nseg):
             x = rng.integers(-lim, lim, size=(npkt, 2, BLOCK, B)).astype(
                 np.int32)
-            gpu, cpu = ({k: v.cpu() for k, v in e.process(x).items()}
-                        for e in engs)
-            for k in cpu:
-                if not torch.equal(gpu[k], cpu[k]):
-                    fail(f"Q28 card vs CPU ({bd}-bit, segment {seg}): {k} "
-                         f"differs")
+            gpu, cpu = (e.process(x) for e in engs)
+            _same_words(f"Q28 card vs CPU ({bd}-bit, segment {seg})", gpu,
+                        cpu)
         if cpu["out"].abs().max() <= 1 << 20:
             fail("Q28 card vs CPU: reference signal is silent")
-        for f, g, c in zip(engs[1].state._fields, engs[0].state,
-                           engs[1].state):
-            if (g is None) != (c is None) or (
-                    g is not None and not torch.equal(g.cpu(), c)):
-                fail(f"Q28 card vs CPU ({bd}-bit): state {f} differs")
+        _same_state(f"Q28 card vs CPU ({bd}-bit)", engs[0].state,
+                    engs[1].state)
     print(f"Q28 card vs CPU: {B} streams x {nseg} segments of {npkt}x{BLOCK}"
           f", 16- and 24-bit: every output and state word equal", flush=True)
+
+
+def phase_new_paths_card_vs_cpu(dev) -> None:
+    """The hetero server (3 configs over 24 scattered streams, an
+    update_group between its 2 segments) and the 44.1 kHz engine (8
+    streams, 2 segments) on the card and on the CPU: every output word and
+    every state word equal."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, HeteroServer
+    from dspi_tpu_torch.configs import full_chain_config, hetero_variants
+
+    rng = np.random.default_rng(43)
+    cfgs = hetero_variants(3, Platform.RP2040)
+    ids = rng.integers(0, 3, 24)
+    srvs = [HeteroServer(cfgs, ids, block_size=BLOCK, emit="full", device=d)
+            for d in (dev, "cpu")]
+    quiet = hetero_variants(3, Platform.RP2040)[1]
+    quiet.master_volume_db = -30.0
+    for seg in range(2):
+        if seg:
+            for srv in srvs:
+                srv.update_group(1, quiet)
+        x = rng.integers(-16000, 16000, size=(8, 2, BLOCK, 24)).astype(
+            np.int32)
+        gpu, cpu = (srv.process(x) for srv in srvs)
+        _same_words(f"hetero card vs CPU (segment {seg})", gpu, cpu)
+    if cpu["out"].abs().max() <= 1 << 20:
+        fail("hetero card vs CPU: reference signal is silent")
+    _same_state("hetero card vs CPU", srvs[0].state, srvs[1].state)
+
+    sched = (44,) * 9 + (45,)
+    engs = [Engine(full_chain_config(Platform.RP2040, 44100.0), n_streams=8,
+                   schedule=sched, emit="full", device=d)
+            for d in (dev, "cpu")]
+    for seg in range(2):
+        x = rng.integers(-16000, 16000, size=(2, sum(sched), 8)).astype(
+            np.int32)
+        gpu, cpu = (e.process(x) for e in engs)
+        _same_words(f"44.1 kHz card vs CPU (segment {seg})", gpu, cpu)
+    if cpu["out"].abs().max() <= 1 << 20:
+        fail("44.1 kHz card vs CPU: reference signal is silent")
+    _same_state("44.1 kHz card vs CPU", engs[0].state, engs[1].state)
+    print("hetero + 44.1 kHz card vs CPU: HeteroServer 3 configs x 24 "
+          "streams x 2 segments of 8x48 with an update_group, Engine 8 "
+          "streams x 2 segments of 441 samples: every output and state "
+          "word equal", flush=True)
+
+
+def _path_rows(calls: list, kind: str) -> dict:
+    """ms, bound and what bounds it of one kernel's calls in one segment
+    of a path, summed."""
+    mine = [c for c in calls if c["kind"] == kind]
+    return {"ms": sum(c["ms"] for c in mine),
+            "bound_ms": sum(c["bound_ms"] for c in mine),
+            "bound_by": max(mine, key=lambda c: c["bound_ms"])["bound_by"],
+            "calls": mine}
 
 
 def main() -> None:
@@ -696,32 +912,62 @@ def main() -> None:
     phase_build()
     pdm_row = phase_pdm(dev)
     eq_row = phase_eq(dev)
+    mode_times = phase_eq_modes(dev)
     xf_row = phase_xf(dev)
     launches = phase_main(dev, card)
     phase_card_vs_cpu(dev)
     q28 = phase_q28_main(dev, card, 16, record=True)
     q28_24 = phase_q28_main(dev, card, 24, record=False)
     phase_q28_card_vs_cpu(dev)
+    hetero = phase_hetero(dev, card)
+    s441 = phase_44k1(dev, card)
+    phase_new_paths_card_vs_cpu(dev)
 
-    # launches: each path's counted run (float: 4 segments; Q28: 4
-    # segments at 16-bit and 4 at 24-bit)
+    # launches: each path's counted run (4 segments each; the Q28 chain at
+    # 16-bit and at 24-bit)
     paths = {"rp2350_float": launches, "rp2040_q28_16bit": q28["launches"],
-             "rp2040_q28_24bit": q28_24["launches"]}
-    for row, key in ((pdm_row, "pdm"), (eq_row, "eq_q28"),
-                     (xf_row, "xf_q28")):
+             "rp2040_q28_24bit": q28_24["launches"],
+             "rp2040_q28_hetero": hetero["launches"],
+             "rp2040_q28_44k1": s441["launches"]}
+    # the cascade kernel's scalar-coefficient, uniform-packet mode: its
+    # launches less the other modes' (no path combines lane_cf and a
+    # schedule)
+    for n in paths.values():
+        n["eq_q28_scalar"] = (n.get("eq_q28", 0) - n.get("eq_q28_lane_cf", 0)
+                              - n.get("eq_q28_sched", 0))
+    lane_row = {"name": "eq_q28_cascade_lane_cf", "route": "cuda",
+                "source": "dspi_tpu_torch/kernels/csrc/eq_q28.cu",
+                "replaces": "dspi_tpu/kernels/eq_pallas.py:142 (_core, "
+                            "lane_cf mode)",
+                "max_abs_err": 0, "plain_ms": mode_times["lane_cf"][0],
+                "library_ms": None, "equal_to_plain": True,
+                "plain_shape": [4, 2 * BLOCK, 4100],
+                "kernel_ms_at_plain_shape": mode_times["lane_cf"][1],
+                **_path_rows(hetero["calls"], "eq")}
+    sched_row = {"name": "eq_q28_cascade_sched", "route": "cuda",
+                 "source": "dspi_tpu_torch/kernels/csrc/eq_q28.cu",
+                 "replaces": "dspi_tpu/kernels/eq_pallas.py:196 (_core, "
+                             "schedule mode: dense envelope :305, packet-end "
+                             "gather :352)",
+                 "max_abs_err": 0, "plain_ms": mode_times["sched"][0],
+                 "library_ms": None, "equal_to_plain": True,
+                 "plain_shape": [4, sum(SCHED), 4100],
+                 "kernel_ms_at_plain_shape": mode_times["sched"][1],
+                 **_path_rows(s441["calls"], "eq")}
+    for row, key in ((pdm_row, "pdm"), (eq_row, "eq_q28_scalar"),
+                     (lane_row, "eq_q28_lane_cf"),
+                     (sched_row, "eq_q28_sched"), (xf_row, "xf_q28")):
         row["launches_by_path"] = {p: n.get(key, 0) for p, n in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-    # the cascade kernel's time and bound per segment: its two calls
-    eq_calls = [c for c in q28["calls"] if c["kind"] == "eq"]
+    # the scalar mode's time and bound per segment: its two calls
+    eq_row.update(_path_rows(q28["calls"], "eq"))
     xf_call = next(c for c in q28["calls"] if c["kind"] == "xf")
-    eq_row.update(ms=sum(c["ms"] for c in eq_calls),
-                  bound_ms=sum(c["bound_ms"] for c in eq_calls),
-                  bound_by=max(eq_calls, key=lambda c: c["bound_ms"])[
-                      "bound_by"],
-                  calls=eq_calls)
     xf_row.update(ms=xf_call["ms"], bound_ms=xf_call["bound_ms"],
-                  bound_by=xf_call["bound_by"], shape=xf_call["shape"])
-    print(json.dumps({"kernels": [pdm_row, eq_row, xf_row]}), flush=True)
+                  bound_by=xf_call["bound_by"], shape=xf_call["shape"],
+                  hetero_call=next(c for c in hetero["calls"]
+                                     if c["kind"] == "xf"))
+    print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
+                                  xf_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

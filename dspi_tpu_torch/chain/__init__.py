@@ -3,8 +3,11 @@
 ``Engine`` runs B parallel streams of one device config on one card.  It
 mirrors the JAX package's ``Engine`` (chain/__init__.py) for the RP2350
 float chain at 48 and 96 kHz on the block-matmul lowering and for the
-RP2040 Q28 chain at 48 and 96 kHz; everything else is refused with
-NotImplementedError naming its ROADMAP.md item.
+RP2040 Q28 chain at 44.1 (the 44/45 packet schedule), 48 and 96 kHz, with
+per-stream parameters on the Q28 chain.  ``GroupedEngine`` and
+``HeteroServer`` (chain/grouped.py) serve several Q28 configs at once.
+Everything else is refused with NotImplementedError naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -18,41 +21,34 @@ import torch
 from ..core import constants as C
 from ..params.design import derive
 from ..params.types import DeviceConfig
+from .grouped import GroupedEngine, HeteroServer
 from .mxu import build_blocks
 from .pack import (ChainParams, ChainState, StaticChain, build_params,
                    build_params_multi, build_static, from_numpy,
-                   init_state, to_device, to_numpy)
+                   init_state, resolve_device, to_device, to_numpy)
 from .pipeline import process_float, process_q28, refuse
 
-__all__ = ["Engine", "StaticChain", "ChainParams", "ChainState",
-           "build_static", "build_params", "build_params_multi",
-           "init_state", "packet_geometry", "process_float", "process_q28",
-           "from_numpy", "to_numpy", "to_device"]
+__all__ = ["Engine", "GroupedEngine", "HeteroServer", "StaticChain",
+           "ChainParams", "ChainState", "build_static", "build_params",
+           "build_params_multi", "init_state", "packet_geometry",
+           "process_float", "process_q28", "from_numpy", "to_numpy",
+           "to_device"]
 
 
 def packet_geometry(sample_rate, n_packets: int = 10):
     """USB packet geometry for a sample rate: one isochronous packet per
-    millisecond, 48/96 samples at 48/96 kHz (current_architecture.md:1092).
-    Returns ``(block_size, schedule)`` with ``schedule=None``.  44.1 kHz
-    (the 44/45 cadence) is refused."""
+    millisecond (current_architecture.md:1092), 48/96 samples at 48/96
+    kHz, and the 44/45 cadence at 44.1 kHz (nine 44s then a 45: 441
+    samples per 10 ms).  Returns ``(block_size, schedule)``: uniform rates
+    get ``schedule=None``; 44.1 kHz gets the cadence tiled to
+    ``n_packets`` rounded up to whole 10 ms groups."""
     rate = int(sample_rate)
     if rate == 44100:
-        raise NotImplementedError(
-            "variable-packet schedules (44.1 kHz) are not ported yet: "
-            "ROADMAP.md section 1, item 8")
+        groups = max(1, -(-int(n_packets) // 10))
+        return 45, ((44,) * 9 + (45,)) * groups
     if rate not in (48000, 96000):
         raise ValueError(f"unsupported sample rate {sample_rate}")
     return rate // 1000, None
-
-
-def _device(device) -> torch.device:
-    """``None`` means the card; a CUDA device that is not there raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the engine runs on the card unless the caller "
-            "passes device='cpu'")
-    return dev
 
 
 class Engine:
@@ -68,9 +64,12 @@ class Engine:
                  schedule=None, mxu: bool = True, wire: bool = False,
                  device=None):
         """``device``: where the chain runs; None means "cuda", and raises
-        when no CUDA device is present.  ``schedule``, ``wire=True`` and,
-        on the float chain, ``mxu=False`` are refused (not ported yet)."""
-        self.device = _device(device)
+        when no CUDA device is present.  ``schedule``: per-packet sample
+        counts (44.1 kHz delivers 44/45-sample packets); ``process`` then
+        takes x as [2, sum(schedule), B] and emit='full' outputs are
+        time-flat.  Refused (not ported yet): ``wire=True`` and, on the
+        float chain, ``schedule`` and ``mxu=False``."""
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.n_streams = n_streams
         self._rate = float(cfg.sample_rate)
@@ -89,8 +88,9 @@ class Engine:
 
     # -- running ----------------------------------------------------------
     def process(self, x, preset_mute=None):
-        """x: int32 [n_packets, 2, block_size, B] (tensor or array) ->
-        output dict of tensors on the engine's device."""
+        """x: int32 [n_packets, 2, block_size, B], or [2, sum(schedule), B]
+        with a schedule (tensor or array) -> output dict of tensors on the
+        engine's device."""
         x = torch.as_tensor(x, device=self.device)
         if preset_mute is not None:
             preset_mute = torch.as_tensor(preset_mute, dtype=torch.float32,
@@ -119,7 +119,8 @@ class Engine:
     def load_params_state(self, params, state) -> None:
         """Take params and state as NumPy trees (what the JAX package's
         ``build_params``/``init_state`` return, or ``np.asarray`` of its
-        engine's), so both packages can run from the same numbers."""
+        engine's), so both packages can run from the same numbers.  On the
+        Q28 chain the params may be per-stream (``build_params_multi``)."""
         self.params, self.state = from_numpy(params, state, self.device)
         self.blocks = self._blocks()
 
@@ -133,25 +134,29 @@ class Engine:
           * any crossfeed change clears its filter state
           * leveller enable / lookahead toggles reset the leveller
           * preset load zeroes the delay lines and resets the leveller
-          * a 48 <-> 96 kHz rate change recomputes every coefficient and
-            re-packetizes (callers re-frame their segments); filter state
-            persists
+          * a rate change among 44.1, 48 and 96 kHz recomputes every
+            coefficient and re-packetizes (``packet_geometry``: the 44/45
+            schedule at 44.1 kHz, as many packets as before); callers
+            re-frame their segments; filter state persists
           * ``bit_depth`` (16|24, None = keep) changes only the unpack
           * a sub-output enable flip sets ``pdm_ena``: the modulator fades
             out, stops, restarts (pdm_generator.c:217-252); the stage is
             kept across a runtime disable so the fade-out runs
         """
         old_cfg, old_d, old_static = self.cfg, self.derived, self.static
-        block_size = old_static.block_size
+        block_size, schedule = old_static.block_size, old_static.schedule
         if float(cfg.sample_rate) != self._rate:
-            block_size, _ = packet_geometry(cfg.sample_rate)
+            block_size, schedule = packet_geometry(
+                cfg.sample_rate,
+                len(old_static.schedule) if old_static.schedule else 10)
         new_d = derive(cfg)
         new_static = build_static(
             new_d, block_size=block_size,
             bit_depth=(old_static.bit_depth if bit_depth is None
                        else int(bit_depth)), emit=old_static.emit,
             pdm=old_static.pdm_on or cfg.outputs[-1].enabled,
-            mxu=old_static.mxu, pdm_keep=old_static.pdm_on)
+            schedule=schedule, mxu=old_static.mxu,
+            pdm_keep=old_static.pdm_on)
         refuse(new_static)
         self.cfg, self.derived = cfg, new_d
         self._rate = float(cfg.sample_rate)

@@ -373,13 +373,53 @@ def init_state(static: StaticChain, n_streams: int,
     )
 
 
-_PER_STREAM = ("per-stream parameters (build_params_multi) are not ported "
-               "yet: ROADMAP.md section 1, item 11")
+def build_params_multi(deriveds: list, static: StaticChain,
+                       stream_config_ids=None) -> ChainParams:
+    """Per-stream heterogeneous parameters.
 
+    Stacks the params of several configs on a trailing stream axis so every
+    stream in the batch can run its own coefficients/gains/delays — beyond
+    the single-config firmware, but a natural fit for batched serving.
+    All configs must share the same static structure (band kinds, enables);
+    ``build_static`` of each must equal ``static``.
 
-def build_params_multi(*_args, **_kwargs):
-    """Per-stream parameters are not in the port yet."""
-    raise NotImplementedError(_PER_STREAM)
+    ``stream_config_ids``: optional int array [B] mapping each stream to a
+    config index (default: one stream per config, B == len(deriveds)).
+    """
+    if static.mxu:
+        raise ValueError(
+            "per-stream parameters require the scan path: the MXU block "
+            "matrices are built from homogeneous coefficients (build the "
+            "static with mxu=False, or use GroupedEngine for K-config "
+            "heterogeneous serving)")
+    for d in deriveds:
+        s = build_static(d, block_size=static.block_size,
+                         bit_depth=static.bit_depth, emit=static.emit,
+                         pdm=static.pdm_on, schedule=static.schedule,
+                         mxu=static.mxu, wire=bool(static.wire))
+        if s != static:
+            raise ValueError(
+                "heterogeneous configs must share static structure; "
+                f"mismatch for config with bands {s.band_kinds}")
+    per = [build_params(d, static) for d in deriveds]
+    ids = (None if stream_config_ids is None
+           else np.asarray(stream_config_ids, np.int64))
+
+    def stack(*xs):
+        if xs[0] is None:
+            return None
+        arrs = [np.asarray(x) for x in xs]
+        # Collapse config-uniform leaves back to the homogeneous form: a
+        # coefficient identical across every config (delays, loudness
+        # tables, crossfeed poles in a typical multi-tenant mix) keeps its
+        # broadcast form in the pipeline, notably the delay lines, whose
+        # per-stream form is a gather over [D+T, B] per output.
+        if all(np.array_equal(arrs[0], a) for a in arrs[1:]):
+            return arrs[0]
+        stacked = np.stack(arrs, axis=-1)
+        return stacked if ids is None else stacked[..., ids]
+
+    return ChainParams(*[stack(*vals) for vals in zip(*per)])
 
 
 # ----------------------------------------------------------------------------
@@ -398,24 +438,50 @@ def _tensor(v, device):
     return torch.from_numpy(a.copy()).to(device)      # copy: C order, ndim kept
 
 
+def resolve_device(device) -> torch.device:
+    """An engine's device: ``None`` means the card, and a CUDA device that
+    is not there raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the engine runs on the card unless the caller "
+            "passes device='cpu'")
+    return dev
+
+
 def to_device(tree, device):
     """A ChainParams/ChainState of NumPy arrays -> the same tree of torch
     tensors on ``device`` (None fields stay None)."""
     return type(tree)(*[_tensor(v, device) for v in tree])
 
 
-def _check_homogeneous(params):
-    eq = params.eq_f32 if params.eq_f32 is not None else params.eq_q28
-    if (eq is not None and np.ndim(eq) != 3) or np.ndim(params.xf) != 1 \
-            or np.ndim(params.matrix_gain) != 2:
-        raise NotImplementedError(_PER_STREAM)
+# the rank of each ChainParams leaf that ``build_params`` gives; a
+# per-stream leaf (``build_params_multi``) has one more, the stream axis
+_NDIM = dict(unpack_gain=1, loud_sva=2, loud_qbq=2, loud_bypass=1,
+             eq_f32=3, eq_q28=3, lev=1, xf=1, vol_mul=0, master_vol=0,
+             matrix_gain=2, out_gain=1, delay_samples=1)
+
+
+def _check_supported(params):
+    """Per-stream (per-lane) trees run on the Q28 chain only: the float
+    chain's block matrices are built from homogeneous coefficients."""
+    if params.eq_f32 is not None and any(
+            getattr(params, f) is not None
+            and np.ndim(getattr(params, f)) > n for f, n in _NDIM.items()):
+        raise NotImplementedError(
+            "per-stream parameters on the float chain (grouped and hetero "
+            "serving of RP2350 configs) are not ported yet: ROADMAP.md "
+            "section 1, item 11b")
 
 
 def from_numpy(params, state, device):
     """JAX-package (or port) ChainParams/ChainState holding NumPy arrays
     -> the port's trees of torch tensors on ``device``.  Fields are read
-    by name, so any NamedTuple with the port's field names will do."""
-    _check_homogeneous(params)
+    by name, so any NamedTuple with the port's field names will do.  On
+    the Q28 chain the params may be per-stream trees, as the JAX
+    package's ``build_params_multi`` or a flat ``GroupedEngine`` holds
+    them."""
+    _check_supported(params)
     p = ChainParams(*[getattr(params, f) for f in ChainParams._fields])
     s = ChainState(*[getattr(state, f) for f in ChainState._fields])
     return to_device(p, device), to_device(s, device)

@@ -5,6 +5,9 @@ One call processes a *segment* of ``n_packets`` emulated USB packets of
 
     x: int32 [n_packets, 2, block_size, B]  ->  outputs [..., B]
 
+A chain with a packet schedule (``static.schedule``, the 44.1 kHz 44/45
+cadence) takes the time-flat x int32 [2, sum(schedule), B] instead.
+
 ``process_float`` is the RP2350 float chain, the JAX package's
 ``_process_float`` (chain/pipeline.py) on its block-matmul branches: the
 LTI passes (loudness + master EQ, crossfeed + matrix + per-output EQ) run
@@ -17,7 +20,9 @@ firmware-semantics golden model.
 ``process_q28`` is the RP2040 Q28 chain, the JAX package's
 ``_process_q28``, bit-exact: both EQ scans run as the Q28 cascade kernel
 (kernels/eq_cuda.py), the crossfeed as its own kernel (kernels/xf_cuda.py),
-and the rest as whole-segment integer tensor ops.
+and the rest as whole-segment integer tensor ops.  It takes per-stream
+parameters (``pack.build_params_multi``: any leaf may carry a trailing
+[B] stream axis) and packet schedules.
 
 In both, the leveller's packet-rate gain smoothing is a Python loop over
 packets and the PDM modulator is the CUDA kernel (kernels/pdm_cuda.py).
@@ -30,7 +35,7 @@ packets and the PDM modulator is the CUDA kernel (kernels/pdm_cuda.py).
   PASS 5  per-output EQ/gain/delay/convert      usb_audio.c:873-959 / 1191-1275
 
 Refused here, each naming its ROADMAP.md item: the float chain's scan
-lowering (``mxu=False``), variable-packet schedules and the device-side
+lowering (``mxu=False``) and its packet schedules, and the device-side
 wire stage.
 """
 from __future__ import annotations
@@ -168,12 +173,68 @@ def _delay_apply(ring_k, buf, dly, T, D):
     Rings are time-ordered (oldest first): the delayed stream is a window
     of concat(ring, buf) starting at D - dly.  ``dly`` stays a device
     tensor (an index_select, not a host read), so the host never waits on
-    the card here.  Returns (delayed [T, B], ring' [D, B])."""
+    the card here.  A per-stream delay ([B]) reads through one gather over
+    [D+T, B], its index built once.  Returns (delayed [T, B], ring' [D, B])."""
     comb = torch.cat([ring_k, buf], dim=0)                # [D+T, B]
-    idx = (D - dly.to(torch.int64)) + torch.arange(T, device=buf.device)
-    delayed = comb.index_select(0, idx)
+    t = torch.arange(T, device=buf.device)
+    start = D - dly.to(torch.int64)
+    if start.dim() == 0:
+        delayed = comb.index_select(0, start + t)
+    else:
+        delayed = torch.gather(comb, 0, start[None, :] + t[:, None])
     ring_new = buf[T - D:] if T >= D else comb[T:]
     return delayed, ring_new
+
+
+def _segment_layout(static: StaticChain, x):
+    """Resolve the packet schedule.  Uniform chains take x as [Npkt, 2, T,
+    B]; scheduled chains (``static.schedule``, e.g. the 44.1 kHz 44/45
+    cadence) the time-flat [2, Ttot, B].  Returns (x2 [2, Ttot, B], sched
+    int64 NumPy [Npkt] of packet lengths, Npkt, Ttot)."""
+    if static.schedule:
+        sched = np.asarray(static.schedule, np.int64)
+        Ttot = int(sched.sum())
+        if x.dim() != 3 or x.shape[:2] != (2, Ttot):
+            raise ValueError(f"a scheduled chain takes x [2, {Ttot}, B], "
+                             f"got {tuple(x.shape)}")
+        return x, sched, len(sched), Ttot
+    Npkt, _, T, B = x.shape
+    sched = np.full(Npkt, T, np.int64)
+    return x.transpose(0, 1).reshape(2, Npkt * T, B), sched, Npkt, Npkt * T
+
+
+def _ramp_indices(sched):
+    """(t_within_packet, packet) index pair for every flat sample."""
+    tt = np.concatenate([np.arange(t, dtype=np.int64) for t in sched])
+    kk = np.repeat(np.arange(len(sched), dtype=np.int64), sched)
+    return tt, kk
+
+
+def _pattern_len(sched: np.ndarray):
+    """Smallest p with sched = tile(sched[:p]): 1 for uniform packets, 10
+    for the 44.1 kHz cadence, None when there is no period."""
+    n = len(sched)
+    for p in range(1, n // 2 + 1):
+        if n % p == 0 and bool((sched == np.tile(sched[:p], n // p)).all()):
+            return p
+    return None
+
+
+def _pkts_to_flat(arr, sched, Ttot):
+    """[Npkt, Tmax, ...] -> [Ttot, ...], dropping each packet's padded tail
+    rows: a reshape for uniform packets, else one static index gather."""
+    if _pattern_len(sched) == 1:
+        return arr.reshape((Ttot,) + arr.shape[2:])
+    tt, kk = _ramp_indices(sched)
+    idx = torch.from_numpy(kk * arr.shape[1] + tt).to(arr.device)
+    return arr.reshape((-1,) + arr.shape[2:]).index_select(0, idx)
+
+
+def _per_packet(vals, sched, Ttot):
+    """Broadcast a per-packet [Npkt, 1|B] array to [Ttot, 1|B] along the
+    schedule."""
+    reps = torch.from_numpy(sched).to(vals.device)
+    return torch.repeat_interleave(vals, reps, dim=0, output_size=Ttot)
 
 
 def _unflatten(arrs, Npkt, T):
@@ -190,10 +251,10 @@ def refuse(static: StaticChain):
         raise NotImplementedError(
             "the scan lowering (mxu=False) is not ported yet: ROADMAP.md "
             "section 1, item 7")
-    if static.schedule:
+    if static.is_float and static.schedule:
         raise NotImplementedError(
-            "variable-packet schedules (44.1 kHz) are not ported yet: "
-            "ROADMAP.md section 1, item 8")
+            "variable-packet schedules (44.1 kHz) on the float chain are not "
+            "ported yet: ROADMAP.md section 1, item 8b")
     if static.wire:
         raise NotImplementedError(
             "the device-side wire stage (wire=True) is not ported yet: "
@@ -415,9 +476,18 @@ _INV_Q28 = 2.0 ** -28
 _TINY = float(np.float32(1e-30))
 
 
-def _band_rows(p, st, bands, nb):
+def _lane_rows(rows, B):
+    """Coefficient rows [n, 5], or [n, 5, B] per lane, all in the per-lane
+    form: a config-uniform row (the identity, a collapsed leaf of
+    ``build_params_multi``) broadcasts over the lanes."""
+    return [r.unsqueeze(-1).expand(*r.shape, B) if r.dim() == 2 else r
+            for r in rows]
+
+
+def _band_rows(p, st, bands, nb, lane):
     """Coefficient rows and (s1, s2) state rows of one cascade's ``bands``,
-    padded to ``nb`` bands with exact pass-through rows and zero states."""
+    padded to ``nb`` bands with exact pass-through rows and zero states;
+    with ``lane``, every row in the per-lane [n, 5, B] form."""
     B = st.eq_a.shape[-1]
     dev = st.eq_a.device
     pad = nb - len(bands)
@@ -426,41 +496,66 @@ def _band_rows(p, st, bands, nb):
     srows = [v for c, band, _k in bands
              for v in (st.eq_a[c, band], st.eq_b[c, band])]
     srows += [torch.zeros((B,), dtype=_I32, device=dev)] * (2 * pad)
-    return rows, srows
+    return (_lane_rows(rows, B) if lane else rows), srows
+
+
+def _cascade_cf(rows, lane, B, dev):
+    """One cascade's rows -> cf [nr, 5] (or [nr, 5, B] with ``lane``)."""
+    if rows:
+        return torch.cat(rows)
+    return torch.zeros((0, 5, B) if lane else (0, 5), dtype=_I32, device=dev)
+
+
+def _master_lane(static: StaticChain, p) -> bool:
+    """Whether scan A runs the per-lane (lane_cf) cascade: any leaf it
+    reads carries a stream axis.  The JAX package decides from ``eq_q28``
+    alone; configs that share their EQ still differ per lane in the
+    loudness row and its bypass flags (another host volume) or in the
+    leveller's RMS alpha (another RMS time)."""
+    return (p.eq_q28.dim() == 4
+            or (static.loudness_on and (p.loud_qbq.dim() == 3
+                                        or p.loud_bypass.dim() == 2))
+            or (static.leveller_on and p.lev.dim() == 2))
 
 
 def _q28_master(static: StaticChain, p, st, bl, br, master_bands,
-                a_rms_q28, one_minus):
+                a_rms_q28, one_minus, sched):
     """Scan A as one cascade call over G=2 (master L, R): the loudness
     prefix, the master bands (identity rows pad the shorter channel) and
     the leveller envelope, as the JAX package's ``_q28_kernel_master``
     builds it.  ``st`` holds this segment's own eq_a/eq_b copies, written
     in place.  Returns (st', bl', br', env_ends [2, Npkt, B] | None)."""
     dev = bl.device
+    B = bl.shape[-1]
     has_loud, has_env = static.loudness_on, static.leveller_on
+    lane = _master_lane(static, p)
     n_loud = 2 if has_loud else 0
     mb = [[t for t in master_bands if t[0] == ch] for ch in range(2)]
     nb = max(len(mb[0]), len(mb[1]))
     cf_ch, s_ch = [], []
     for ch in range(2):
-        rows, srows = _band_rows(p, st, mb[ch], nb)
+        rows, srows = _band_rows(p, st, mb[ch], nb, lane)
         if has_loud:
-            rows = [p.loud_qbq] + rows
+            rows = (_lane_rows([p.loud_qbq], B) if lane
+                    else [p.loud_qbq]) + rows
             srows = [st.loud_a[ch, 0], st.loud_b[ch, 0],
                      st.loud_a[ch, 1], st.loud_b[ch, 1]] + srows
         if has_env:
             srows.append(st.lev_env[ch])
-        cf_ch.append(torch.cat(rows) if rows
-                     else torch.zeros((0, 5), dtype=_I32, device=dev))
+        cf_ch.append(_cascade_cf(rows, lane, B, dev))
         s_ch.append(torch.stack(srows))
-    zero2 = torch.zeros((2,), dtype=_I32, device=dev)
-    scal = torch.cat([p.loud_bypass.to(_I32) if has_loud else zero2,
-                      torch.stack([a_rms_q28, one_minus]) if has_env
-                      else zero2])                 # the same for L and R
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    vals = ([p.loud_bypass[0], p.loud_bypass[1]] if has_loud
+            else [zero, zero])
+    vals += [a_rms_q28, one_minus] if has_env else [zero, zero]
+    # the same scalars for L and R: [4], or [4, B] per lane
+    scal = torch.stack([v.to(_I32).expand(B) if lane else v.to(_I32)
+                        for v in vals])
     y, env, sF = q28_cascades(
         torch.stack([bl, br]), torch.stack(cf_ch), torch.stack(s_ch),
-        scal.expand(2, 4).contiguous(), nb=nb, has_loud=has_loud,
-        has_env=has_env, tc=static.block_size)
+        scal.expand(2, *scal.shape).contiguous(), nb=nb, has_loud=has_loud,
+        has_env=has_env, tc=int(sched[0]),
+        sched=static.schedule or None)
     if has_loud:
         st = st._replace(loud_a=sF[:, [0, 2]], loud_b=sF[:, [1, 3]])
     finals = []
@@ -471,23 +566,27 @@ def _q28_master(static: StaticChain, p, st, bl, br, master_bands,
     return st, y[0], y[1], env
 
 
-def _q28_outeq(static: StaticChain, p, st, bufs, out_bands):
+def _q28_outeq(static: StaticChain, p, st, bufs, out_bands, sched):
     """Scan B as one cascade call over the live outputs, as the JAX
-    package's ``_q28_kernel_outeq`` builds it."""
+    package's ``_q28_kernel_outeq`` builds it; per-lane when the EQ
+    coefficients are."""
     live = sorted({ch - C.CH_OUT_1 for ch, _b, _k in out_bands})
     per_o = {o: [t for t in out_bands if t[0] - C.CH_OUT_1 == o]
              for o in live}
     nb = max(len(v) for v in per_o.values())
+    lane = p.eq_q28.dim() == 4
+    B = bufs[live[0]].shape[-1]
     cf_g, s_g = [], []
     for o in live:
-        rows, srows = _band_rows(p, st, per_o[o], nb)
+        rows, srows = _band_rows(p, st, per_o[o], nb, lane)
         cf_g.append(torch.cat(rows))
         s_g.append(torch.stack(srows))
-    scal = torch.zeros((len(live), 4), dtype=_I32,
-                       device=bufs[live[0]].device)
+    scal = torch.zeros((len(live), 4, B) if lane else (len(live), 4),
+                       dtype=_I32, device=bufs[live[0]].device)
     y, _, sF = q28_cascades(
         torch.stack([bufs[o] for o in live]), torch.stack(cf_g),
-        torch.stack(s_g), scal, nb=nb, tc=static.block_size)
+        torch.stack(s_g), scal, nb=nb, tc=int(sched[0]),
+        sched=static.schedule or None)
     finals = []
     for t in out_bands:
         gi = live.index(t[0] - C.CH_OUT_1)
@@ -504,20 +603,23 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
     ``_process_q28``, word for word.
 
     ``p``/``state``: the port's ChainParams/ChainState of tensors on the
-    device of ``x`` (int32 [n_packets, 2, block_size, B], s16 or s24 values
-    per ``static.bit_depth``).  ``preset_mute`` float32 [n_packets]
-    (default ones).  Both EQ scans go through the cascade kernel
-    (``kernels.eq_cuda.q28_cascades``), the crossfeed through its own
-    (``kernels.xf_cuda.xf_q28``) and the sub output through the PDM
+    device of ``x`` (int32 [n_packets, 2, block_size, B], or [2,
+    sum(schedule), B] with a schedule; s16 or s24 values per
+    ``static.bit_depth``).  Any leaf of ``p`` may carry a trailing [B]
+    stream axis (per-stream parameters).  ``preset_mute`` float32
+    [n_packets] (default ones).  Both EQ scans go through the cascade
+    kernel (``kernels.eq_cuda.q28_cascades``), the crossfeed through its
+    own (``kernels.xf_cuda.xf_q28``) and the sub output through the PDM
     kernel; on CPU tensors each runs its plain version.  The one float
     region, the leveller's gain computer, is single IEEE operations and
     the integer ``fmath`` polynomials, so the card and the CPU give the
     same bits.
 
-    Returns (state', outputs); the input state is not modified."""
+    Returns (state', outputs); the input state is not modified.  With a
+    schedule, emit='full' outputs are time-flat ([K, Ttot, B])."""
     refuse(static)
-    Npkt, _, T, B = x.shape
-    Ttot = Npkt * T
+    x2, sched, Npkt, Ttot = _segment_layout(static, x)
+    B = x2.shape[-1]
     nout = static.n_outputs
     ns2 = static.n_spdif * 2
     dev = x.device
@@ -526,13 +628,12 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
         preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
     st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone())
 
-    # per-packet volume staging (usb_audio.c:975-980), Q15 [Npkt, 1]
+    # per-packet volume staging (usb_audio.c:975-980), Q15 [Npkt, 1|B]
     pm_q15 = f32_to_i32(preset_mute * 32768.0 + 0.5).clamp(0, 32768)
     vol_mul_master = q15_mul(q15_mul(p.vol_mul, pm_q15[:, None]),
                              p.master_vol)
 
     # ---- PASS 1: unpack + preamp (usb_audio.c:996-1015) ----
-    x2 = x.transpose(0, 1).reshape(2, Ttot, B)
     raw = (x2 << 8) >> 2 if static.bit_depth == 24 else x2 << 14
     del x2
     bl = q28_mul(raw[0], p.unpack_gain[0])
@@ -546,7 +647,7 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
         one_minus = C.Q28_ONE - a_rms_q28
     if static.loudness_on or master_bands or static.leveller_on:
         st, bl, br, env = _q28_master(static, p, st, bl, br, master_bands,
-                                      a_rms_q28, one_minus)
+                                      a_rms_q28, one_minus, sched)
 
     # ---- PASS 2.5 leveller block phase (leveller.c:274-389) ----
     if static.leveller_on:
@@ -569,15 +670,16 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
         gc = torch.minimum(gc + makeup, max_gain)
         gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
 
-        # block-rate attack/release smoothing: the loop runs smooth_det
-        # only; the Q28 gains of all packets follow in one pass
-        count = torch.full((1,), float(T), dtype=_F32, device=dev)
-        pow_att = fmath.pow_f32(a_att, count)
-        pow_rel = fmath.pow_f32(a_rel, count)
+        # block-rate attack/release smoothing with alpha^count per packet
+        # ([Npkt, 1|B]): the loop runs smooth_det only; the Q28 gains of
+        # all packets follow in one pass
+        counts = torch.from_numpy(sched.astype(np.float32))[:, None].to(dev)
+        pow_att = fmath.pow_f32(a_att, counts)
+        pow_rel = fmath.pow_f32(a_rel, counts)
         gdb = st.lev_gain_db
         gdbs = []
         for k in range(Npkt):
-            alpha = torch.where(gc[k] < gdb, pow_att, pow_rel)
+            alpha = torch.where(gc[k] < gdb, pow_att[k], pow_rel[k])
             gdb = fmath.smooth_det(alpha, gdb, gc[k])
             gdbs.append(gdb)
         g_cur_p = f32_to_i32(fmath.exp10_f32(torch.stack(gdbs) * _INV20)
@@ -586,20 +688,28 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
         st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
                          lev_gain_prev=g_prev_p[-1])
 
-        # interpolated gain g_prev + (int64(g_cur - g_prev) * i) / (T - 1)
-        # with C's truncating division (leveller.c:352), closed form over
-        # all packets and samples; a one-sample packet jumps to g_cur
-        if T == 1:
-            gains = g_cur_p.reshape(Ttot, B)
+        # interpolated gain g_prev + (int64(g_cur - g_prev) * i) / (n - 1)
+        # with C's truncating division (leveller.c:352), n the packet's
+        # length; closed form over all packets and samples, then each
+        # packet's first n rows; a one-sample packet jumps to g_cur
+        Tmax = int(sched.max())
+        if Tmax == 1:
+            gains = g_cur_p
         else:
             diff = g_cur_p - g_prev_p                  # int32 wrap, as C
             sign = 1 - 2 * (diff < 0).to(torch.int64)[:, None, :]
             # |diff| in int64, so that diff = -2^31 gives 2^31
             q = diff.to(torch.int64).abs()[:, None, :] * torch.arange(
-                T, dtype=torch.int64, device=dev)[None, :, None]
-            q = q.floor_divide_(T - 1).mul_(sign).add_(g_prev_p[:, None, :])
-            gains = wrap32(q).reshape(Ttot, B)
+                Tmax, dtype=torch.int64, device=dev)[None, :, None]
+            div = torch.from_numpy(np.maximum(sched - 1, 1))[:, None, None]
+            q = q.floor_divide_(div.to(dev)).mul_(sign).add_(
+                g_prev_p[:, None, :])
+            gains = wrap32(q)
             del diff, sign, q
+            if (sched == 1).any():
+                one = torch.from_numpy(sched == 1)[:, None, None].to(dev)
+                gains = torch.where(one, g_cur_p[:, None, :], gains)
+            gains = _pkts_to_flat(gains, sched, Ttot)
 
         if static.leveller_lookahead:
             # time-ordered lookahead ring: the delayed stream is a window
@@ -648,7 +758,7 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
 
     # ---- PASS 5: per-output EQ ----
     if out_bands:
-        st, bufs = _q28_outeq(static, p, st, bufs, out_bands)
+        st, bufs = _q28_outeq(static, p, st, bufs, out_bands, sched)
 
     # output gains (usb_audio.c:1203-1212): float multiply, then Q15
     # apply per packet (a zero gain needs no branch: q15_mul(x, 0) == 0)
@@ -659,8 +769,11 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
             bufs[o] = torch.zeros_like(bufs[o])
             continue
         gain = f32_to_i32(p.out_gain[o] * vol_mul_master.to(_F32))
-        bufs[o] = q15_mul(bufs[o].reshape(Npkt, T, B),
-                          gain[:, :, None]).reshape(Ttot, B)
+        if static.schedule:                   # [Ttot, 1|B] along the packets
+            bufs[o] = q15_mul(bufs[o], _per_packet(gain, sched, Ttot))
+        else:                                 # [Npkt, 1, 1|B]
+            bufs[o] = q15_mul(bufs[o].reshape(Npkt, -1, B),
+                              gain[:, None, :]).reshape(Ttot, B)
 
     # delay lines (usb_audio.c:1213-1227)
     if static.delayed_outputs:
@@ -696,9 +809,12 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
             s24.append(q28_to_s24(bufs[chn]) if on else torch.zeros(
                 bufs[chn].shape, dtype=_I32, device=dev))
     outputs = {"peaks": (peaks >> 13) & 0xFFFF}
-    if static.emit == "full":
-        outputs["out"] = _unflatten(torch.stack(bufs), Npkt, T)
-        outputs["s24"] = _unflatten(torch.stack(s24), Npkt, T)
+    if static.emit == "full" and static.schedule:
+        outputs["out"] = torch.stack(bufs)              # [nout, Ttot, B]
+        outputs["s24"] = torch.stack(s24)
+    elif static.emit == "full":
+        outputs["out"] = _unflatten(torch.stack(bufs), Npkt, int(sched[0]))
+        outputs["s24"] = _unflatten(torch.stack(s24), Npkt, int(sched[0]))
     else:
         # int32 sums wrap, as the JAX package's do
         outputs["s24_sum"] = torch.stack(

@@ -4,7 +4,10 @@
 all 11 channels live at 48 kHz — 10-band PEQ on every channel, ISO 226
 loudness, the volume leveller with 10 ms lookahead, BS2B crossfeed, the
 2x9 matrix, per-output EQ + gains + time-alignment delays, s24 conversion
-and the 256x-oversampled delta-sigma PDM sub.  Kept here so that scripts
+and the 256x-oversampled delta-sigma PDM sub.  ``hetero_variants`` is the
+multi-tenant serving mix of the JAX package's stage benchmark
+(bench_stages.py ``_hetero_variants``): K full-chain configs that share
+their structure and differ in coefficients.  Kept here so that scripts
 driving the port never import the JAX package.
 """
 
@@ -48,3 +51,21 @@ def full_chain_config(platform, sample_rate=48000.0, pdm=True):
     cfg.leveller.enabled = True
     cfg.leveller.lookahead = True
     return cfg
+
+
+def hetero_variants(k, platform):
+    """k full-chain configs sharing static structure (band kinds, enables,
+    delays) with distinct coefficients: every channel's 10 EQ bands move
+    in frequency (+2% a config) and gain (+-0.2 dB), and the master volume
+    steps down 0.5 dB a config."""
+    cfgs = []
+    for i in range(k):
+        cfg = full_chain_config(platform)
+        for ch in range(cfg.num_channels):
+            for b in range(10):
+                e = cfg.eq[ch][b]
+                e.freq = float(e.freq) * (1.0 + 0.02 * i)
+                e.gain_db = float(e.gain_db) + (0.2 if i % 2 else -0.2)
+        cfg.master_volume_db = -10.0 - 0.5 * i
+        cfgs.append(cfg)
+    return cfgs

@@ -115,13 +115,15 @@ def sass(name: str) -> str:
 
 
 def loop_counts(sass_text: str, kernel: str) -> dict:
-    """Opcode counts of the longest loop (backward branch) of the kernel
-    whose mangled name contains ``kernel``: ``hist`` by opcode, ``imad``
-    the integer multiply-adds (IMAD*, which issue to the FMA pipe),
-    ``alu`` the rest of the per-thread arithmetic (the integer ALU; not
-    control, memory, uniform or special), ``alu_only`` those of them that
-    no IMAD form can stand in for, ``ldg``/``stg`` the global loads and
-    stores, ``instructions`` all of them."""
+    """Opcode counts of the sample loop of the kernel whose mangled name
+    contains ``kernel``: its longest innermost loop (a backward branch
+    whose body holds no loop with another head; the cascade kernel walks
+    packets in an outer loop around its sample loop).  ``hist`` by
+    opcode, ``imad`` the integer multiply-adds (IMAD*, which issue to the
+    FMA pipe), ``alu`` the rest of the per-thread arithmetic (the integer
+    ALU; not control, memory, uniform or special), ``alu_only`` those of
+    them that no IMAD form can stand in for, ``ldg``/``stg`` the global
+    loads and stores, ``instructions`` all of them."""
     code = sass_text[sass_text.index(kernel):]
     if "Function :" in code:
         code = code[:code.index("Function :")]
@@ -130,7 +132,9 @@ def loop_counts(sass_text: str, kernel: str) -> dict:
              if op.startswith("BRA")
              and (m := re.search(r"0x([0-9a-f]+)", args))
              and int(m.group(1), 16) < addr]
-    end, head = max(loops, key=lambda lp: lp[0] - lp[1])
+    inner = [(end, head) for end, head in loops
+             if not any(head < h and e <= end for e, h in loops)]
+    end, head = max(inner, key=lambda lp: lp[0] - lp[1])
     hist: dict[str, int] = {}
     for addr, op, _ in ins:
         if head <= addr <= end:

@@ -15,9 +15,10 @@
 // ap L, ap R) stay in registers over the whole segment and the thread
 // loops over all T samples, so each word is read once and written once and
 // the [T, B] time-major layout coalesces every access across a warp.  The
-// three coefficients are the same for every stream: each thread reads
-// them once and keeps their split halves in registers.  The next sample's
-// loads are issued before the current sample's arithmetic.
+// three coefficients are the same for every stream ([3]) or the stream's
+// own ([3, B], per-stream parameters): either way each thread reads its
+// three words once and keeps their split halves in registers.  The next
+// sample's loads are issued before the current sample's arithmetic.
 //
 // Integer semantics: adds, subtracts, multiplies and the left shift run on
 // uint32_t (signed overflow is undefined in C++); the >> 12 and >> 16 are
@@ -58,12 +59,15 @@ __global__ void __launch_bounds__(kThreads)
 xf_kernel(const int32_t* __restrict__ l, const int32_t* __restrict__ r,
           const int32_t* __restrict__ coef, const int32_t* __restrict__ s_in,
           int32_t* __restrict__ out_l, int32_t* __restrict__ out_r,
-          int32_t* __restrict__ s_out, int T, int B) {
+          int32_t* __restrict__ s_out, int T, int B, int lane) {
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
   const size_t sB = static_cast<size_t>(B);
-  const Half lp_a0 = split(coef[0]), lp_b1 = split(coef[1]),
-             ap_a = split(coef[2]);
+  // coef [3], or [3, B] per lane
+  const int32_t* c = lane ? coef + b : coef;
+  const size_t cs = lane ? sB : 1;
+  const Half lp_a0 = split(c[0]), lp_b1 = split(c[cs]),
+             ap_a = split(c[2 * cs]);
   int32_t lpL = s_in[b], lpR = s_in[sB + b];
   int32_t apL = s_in[2 * sB + b], apR = s_in[3 * sB + b];
 
@@ -94,19 +98,20 @@ xf_kernel(const int32_t* __restrict__ l, const int32_t* __restrict__ r,
 
 }  // namespace
 
-// l, r int32 [T, B]; coef int32 [3] (lp_a0, lp_b1, ap_a); s_in int32
-// [4, B] (lp L, lp R, ap L, ap R) -> out_l, out_r int32 [T, B], s_out
-// int32 [4, B].  T >= 1, B >= 1.  Launches on `stream` and returns
-// cudaGetLastError().
+// l, r int32 [T, B]; coef int32 [3] (lp_a0, lp_b1, ap_a), or [3, B] with
+// lane; s_in int32 [4, B] (lp L, lp R, ap L, ap R) -> out_l, out_r int32
+// [T, B], s_out int32 [4, B].  T >= 1, B >= 1.  Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int dspi_xf_q28(const void* l, const void* r, const void* coef,
                            const void* s_in, void* out_l, void* out_r,
-                           void* s_out, int T, int B, void* stream) {
+                           void* s_out, int T, int B, int lane,
+                           void* stream) {
   if (T < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + kThreads - 1) / kThreads;
   xf_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(l), static_cast<const int32_t*>(r),
       static_cast<const int32_t*>(coef), static_cast<const int32_t*>(s_in),
       static_cast<int32_t*>(out_l), static_cast<int32_t*>(out_r),
-      static_cast<int32_t*>(s_out), T, B);
+      static_cast<int32_t*>(s_out), T, B, lane);
   return static_cast<int>(cudaGetLastError());
 }

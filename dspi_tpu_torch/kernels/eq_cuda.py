@@ -3,7 +3,8 @@
 On a CUDA tensor it launches ``csrc/eq_q28.cu`` (built with nvcc at first
 use) or raises; on a CPU tensor it runs the plain version,
 ``kernels.eq.q28_cascades_plain``.  There is no other path.  Layout and
-signature are in ``kernels/eq.py``.
+signature, the per-lane (``lane_cf``) form and packet schedules are in
+``kernels/eq.py``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ _I32 = torch.int32
 def _lib():
     fn = build.load("eq_q28").dspi_eq_q28
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -29,32 +30,45 @@ def _lib():
 
 def q28_cascades(x, cf, s0, scal, *, nb, has_loud=False, has_env=False,
                  tc=48, sched=None):
-    """G Q28 cascades over a segment -> (y, env_ends | None, s_final)."""
-    G, T, B, S = check_cascade_args(x, cf, s0, scal, nb=nb,
-                                    has_loud=has_loud, has_env=has_env,
-                                    tc=tc, sched=sched)
+    """G Q28 cascades over a segment -> (y, env_ends | None, s_final).
+    ``LAUNCHES`` counts every launch under ``eq_q28``, and also under
+    ``eq_q28_lane_cf`` and ``eq_q28_sched`` for those modes."""
+    G, T, B, S, ends = check_cascade_args(
+        x, cf, s0, scal, nb=nb, has_loud=has_loud, has_env=has_env, tc=tc,
+        sched=sched)
     if x.device.type == "cpu":
         return q28_cascades_plain(x, cf, s0, scal, nb=nb, has_loud=has_loud,
-                                  has_env=has_env, tc=tc)
+                                  has_env=has_env, tc=tc, sched=sched)
     if x.device.type != "cuda":
         raise ValueError(f"no cascade kernel for device {x.device}")
     if not all(v.is_contiguous() for v in (x, cf, s0, scal)):
         raise ValueError("q28_cascades wants contiguous tensors")
     if max(G * T, B) >= 2**31:
         raise ValueError(f"segment too large: {G} x {T} x {B}")
+    lane = cf.dim() == 4
+    npkt = len(ends) if has_env else 0
     y = torch.empty_like(x)
-    env = (torch.empty((G, T // tc, B), dtype=_I32, device=x.device)
+    env = (torch.empty((G, npkt, B), dtype=_I32, device=x.device)
            if has_env else None)
     if G == 0 or T == 0 or B == 0:
         return y, env, s0.clone()
     s_out = torch.empty_like(s0)
+    # a schedule's packet ends go to the kernel; uniform packets need none
+    ends_t = (torch.tensor(ends, dtype=_I32, device=x.device)
+              if has_env and sched else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = _lib()(x.data_ptr(), cf.data_ptr(), s0.data_ptr(),
-                    scal.data_ptr(), y.data_ptr(),
-                    None if env is None else env.data_ptr(), s_out.data_ptr(),
-                    G, T, B, nb, int(has_loud), int(has_env), tc, stream)
+                    scal.data_ptr(),
+                    None if ends_t is None else ends_t.data_ptr(),
+                    y.data_ptr(), None if env is None else env.data_ptr(),
+                    s_out.data_ptr(), G, T, B, nb, int(has_loud),
+                    int(has_env), int(lane), npkt, tc, stream)
     if rc != 0:
         raise RuntimeError(f"cascade kernel launch failed: CUDA error {rc}")
     LAUNCHES["eq_q28"] += 1
+    if lane:
+        LAUNCHES["eq_q28_lane_cf"] += 1
+    if sched:
+        LAUNCHES["eq_q28_sched"] += 1
     return y, env, s_out

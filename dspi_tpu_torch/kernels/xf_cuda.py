@@ -4,7 +4,8 @@ The stereo one-pole low-pass + allpass recurrence of the crossfeed
 (usb_audio.c:1064-1073), the JAX package's ``xf_body`` scan
 (chain/pipeline.py).  ``xf_q28`` launches ``csrc/xf_q28.cu`` on a CUDA
 tensor or raises; on a CPU tensor it runs ``xf_q28_plain``, a Python loop
-over samples vectorized over streams.
+over samples vectorized over streams.  The coefficients are the same for
+every stream ([3]) or per stream ([3, B], per-stream parameters).
 """
 
 from __future__ import annotations
@@ -25,17 +26,19 @@ def _check(l, r, coef, s4):
             raise TypeError(f"xf_q28 wants int32 {name}, got {v.dtype}")
         if v.device != l.device:
             raise ValueError(f"{name} on {v.device}, l on {l.device}")
-    if l.dim() != 2 or r.shape != l.shape or coef.shape != (3,) \
+    if l.dim() != 2 or r.shape != l.shape \
+            or coef.shape not in ((3,), (3, l.shape[1])) \
             or s4.shape != (4, l.shape[1]):
         raise ValueError(
-            f"xf_q28 wants l, r [T, B], coef [3], state [4, B]; got "
+            f"xf_q28 wants l, r [T, B], coef [3] or [3, B], state [4, B]; got "
             f"{tuple(l.shape)}, {tuple(r.shape)}, {tuple(coef.shape)}, "
             f"{tuple(s4.shape)}")
 
 
 def xf_q28_plain(l, r, coef, s4):
-    """l, r int32 [T, B] Q28; coef int32 [3] = (lp_a0, lp_b1, ap_a); s4
-    int32 [4, B] = (lp L, lp R, ap L, ap R) -> (out_l, out_r, s4')."""
+    """l, r int32 [T, B] Q28; coef int32 [3] or [3, B] = (lp_a0, lp_b1,
+    ap_a); s4 int32 [4, B] = (lp L, lp R, ap L, ap R) -> (out_l, out_r,
+    s4')."""
     _check(l, r, coef, s4)
     lp_a0, lp_b1, ap_a = coef.unbind(0)
     lpL, lpR, apL, apR = s4.unbind(0)
@@ -57,7 +60,7 @@ def xf_q28_plain(l, r, coef, s4):
 def _lib():
     fn = build.load("xf_q28").dspi_xf_q28
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -83,7 +86,7 @@ def xf_q28(l, r, coef, s4):
     with torch.cuda.device(l.device):
         rc = _lib()(l.data_ptr(), r.data_ptr(), coef.data_ptr(),
                     s4.data_ptr(), out_l.data_ptr(), out_r.data_ptr(),
-                    s_out.data_ptr(), T, B, stream)
+                    s_out.data_ptr(), T, B, int(coef.dim() == 2), stream)
     if rc != 0:
         raise RuntimeError(f"crossfeed kernel launch failed: CUDA error {rc}")
     LAUNCHES["xf_q28"] += 1

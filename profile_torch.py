@@ -1,16 +1,20 @@
 #!/usr/bin/env python
 """Where one full-width segment of the port's main path spends its time.
 
-    python3 profile_torch.py [rp2350|rp2040]
+    python3 profile_torch.py [rp2350|rp2040|rp2040_hetero|rp2040_44k1]
 
-Runs the headline chain of the platform (default rp2350: the float chain;
-rp2040: the Q28 chain; 48 kHz, full_chain_config, emit "reduced", PDM on)
-on one CUDA card at 16384 streams x 128 packets of 48 samples, warms up,
-then traces one segment with torch.profiler (CPU and CUDA activity).
+Runs one full-width path on one CUDA card (emit "reduced", PDM on): the
+headline chain of the platform (default rp2350: the float chain; rp2040:
+the Q28 chain; 48 kHz, full_chain_config) at 16384 streams x 128 packets of
+48 samples; rp2040_hetero: a HeteroServer over 8 Q28 configs of one
+structure (configs.hetero_variants) scattered over the same 16384 streams;
+rp2040_44k1: the Q28 chain at 44.1 kHz, 16384 streams x 130 packets on the
+44/45 cadence (5733 samples).  It warms up, then traces one segment with
+torch.profiler (CPU and CUDA activity).
 Prints the card, the segment's wall time, the number of device kernels and
 their summed time, the device's idle share (1 - kernel time / wall), and
 the ops with the most device time; writes the full table to
-chiprun_out/profile_<platform>.txt.  Then times each stage of one more
+chiprun_out/profile_<path>.txt.  Then times each stage of one more
 segment (synchronized before and after each call of a stage, so stages
 cannot overlap and the sum is slower than an unwrapped segment).
 
@@ -28,22 +32,32 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 STREAMS, PACKETS, BLOCK = 16384, 128, 48
+SCHED441 = ((44,) * 9 + (45,)) * 13
+PATHS = ("rp2350", "rp2040", "rp2040_hetero", "rp2040_44k1")
 # (library, a piece of the kernel's mangled name, label): the cascade
-# kernel's two headline instantiations, <NB, LOUD, ENV>
+# kernel's instantiations <NB, LOUD, ENV, LANE> that the paths launch (the
+# schedule mode runs the uniform instances)
 _LOOPS = (("pdm", "pdm_kernel", "pdm"),
-          ("eq_q28", "cascade_kernelILi10ELb1ELb1E", "eq master <10,1,1>"),
-          ("eq_q28", "cascade_kernelILi10ELb0ELb0E", "eq output <10,0,0>"),
+          ("eq_q28", "cascade_kernelILi10ELb1ELb1ELb0E",
+           "eq master <10,1,1,0>"),
+          ("eq_q28", "cascade_kernelILi10ELb0ELb0ELb0E",
+           "eq output <10,0,0,0>"),
+          ("eq_q28", "cascade_kernelILi10ELb1ELb1ELb1E",
+           "eq master lane_cf <10,1,1,1>"),
+          ("eq_q28", "cascade_kernelILi10ELb0ELb0ELb1E",
+           "eq output lane_cf <10,0,0,1>"),
           ("xf_q28", "xf_kernel", "xf"))
 
 
-def _stages(platform):
+def _stages(path):
     from dspi_tpu_torch.chain import mxu, pipeline
     from dspi_tpu_torch.core import fmath
 
-    if platform == "rp2350":
+    if path == "rp2350":
         return [(mxu, "chain_a", "loudness + master EQ (block products)"),
                 (mxu, "env_packet_ends", "leveller envelope"),
                 (mxu, "chain_b", "crossfeed + matrix + output EQ"),
@@ -57,12 +71,12 @@ def _stages(platform):
             (pipeline, "q28_mul", "q28_mul (preamp, limiter)")]
 
 
-def stage_times(eng, x, platform) -> dict:
+def stage_times(eng, x, path) -> dict:
     """Wall milliseconds per stage of one segment, summed over the stage's
     calls."""
     times = {}
     saved = []
-    for mod, name, label in _stages(platform):
+    for mod, name, label in _stages(path):
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
@@ -109,29 +123,45 @@ def loop_ops(out: Path) -> None:
               f"{c['ldg']}, STG {c['stg']}; by opcode {top}")
 
 
+def _path(path, dev):
+    """(engine, one segment's input) of a path."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, HeteroServer
+    from dspi_tpu_torch.configs import full_chain_config, hetero_variants
+
+    kw = dict(emit="reduced", pdm=True, pdm_fade=False, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shape = (PACKETS, 2, BLOCK, STREAMS)
+    if path == "rp2040_hetero":
+        ids = np.random.default_rng(5).integers(0, 8, STREAMS)
+        eng = HeteroServer(hetero_variants(8, Platform.RP2040), ids,
+                           block_size=BLOCK, **kw)
+    elif path == "rp2040_44k1":
+        eng = Engine(full_chain_config(Platform.RP2040, 44100.0),
+                     n_streams=STREAMS, schedule=SCHED441, **kw)
+        shape = (2, sum(SCHED441), STREAMS)
+    else:
+        eng = Engine(full_chain_config(Platform(path)), n_streams=STREAMS,
+                     block_size=BLOCK, **kw)
+    x = torch.randint(-16000, 16000, shape, generator=gen,
+                      dtype=torch.int32, device=dev)
+    return eng, x
+
+
 def main() -> None:
-    platform = sys.argv[1] if len(sys.argv) > 1 else "rp2350"
-    if platform not in ("rp2350", "rp2040"):
-        raise SystemExit(f"unknown platform {platform}: rp2350 or rp2040")
+    path = sys.argv[1] if len(sys.argv) > 1 else "rp2350"
+    if path not in PATHS:
+        raise SystemExit(f"unknown path {path}: one of {', '.join(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dspi_tpu_torch import Platform
-    from dspi_tpu_torch.chain import Engine
-    from dspi_tpu_torch.configs import full_chain_config
-
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    eng = Engine(full_chain_config(Platform(platform)), n_streams=STREAMS,
-                 block_size=BLOCK, emit="reduced", pdm=True, pdm_fade=False,
-                 device=dev)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    x = torch.randint(-16000, 16000, (PACKETS, 2, BLOCK, STREAMS),
-                      generator=gen, dtype=torch.int32, device=dev)
+    eng, x = _path(path, dev)
     for i in range(2):
         eng.process(x ^ i)
     torch.cuda.synchronize()
@@ -149,15 +179,15 @@ def main() -> None:
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / f"profile_{platform}.txt").write_text(
+    (out / f"profile_{path}.txt").write_text(
         f"card: {card}\nwall {wall * 1e3:.3f} ms\n{table}\n")
     print(f"card: {card}")
-    print(f"{platform} segment {STREAMS} x {PACKETS}x{BLOCK}: wall "
+    print(f"{path} segment {STREAMS} streams x {tuple(x.shape[:-1])}: wall "
           f"{wall * 1e3:.3f} ms (profiled), {n_kernels} kernels, device "
           f"kernel time {dev_us / 1e3:.3f} ms, idle share "
           f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
-    for label, ms in stage_times(eng, x ^ 3, platform).items():
+    for label, ms in stage_times(eng, x ^ 3, path).items():
         print(f"stage {ms:10.3f} ms  {label}")
     loop_ops(out)
 

@@ -37,3 +37,26 @@ def test_loop_counts_sorts_the_sample_loop_by_pipe():
     # of which IADD3, LEA and SHF.L.U32 have IMAD forms
     assert c["alu_only"] == 4
     assert (c["ldg"], c["stg"]) == (1, 1)
+
+
+NESTED = """
+        Function : _Z14cascade_kernelILi1ELb0ELb1ELb0EEvPKi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E R3, desc[UR4][R8.64] ;
+        /*0020*/                   IMAD R2, R3, R4, RZ ;
+        /*0030*/                   LDG.E R10, desc[UR4][R2.64] ;
+        /*0040*/                   SHF.R.S32.HI R8, RZ, 0xc, R2 ;
+        /*0050*/                   STG.E desc[UR4][R2.64], R8 ;
+        /*0060*/               @P0 BRA 0x20 ;
+        /*0070*/                   STG.E desc[UR4][R6.64], R9 ;
+        /*0080*/               @P1 BRA 0x10 ;
+        /*0090*/                   EXIT ;
+"""
+
+
+def test_loop_counts_takes_the_inner_loop_of_a_nest():
+    """A packet loop around the sample loop: the counts are the sample
+    loop's."""
+    c = build.loop_counts(NESTED, "cascade_kernel")
+    assert (c["head"], c["end"]) == (0x20, 0x60)
+    assert (c["imad"], c["alu"], c["ldg"], c["stg"]) == (1, 1, 1, 1)

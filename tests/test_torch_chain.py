@@ -282,7 +282,7 @@ def test_reduced_emit_is_the_full_emit_reduced():
 
 @pytest.mark.parametrize("kw", [dict(mxu=False), dict(wire=True),
                                 dict(schedule=(44, 45)),
-                                dict(q28=True, schedule=(44, 45))])
+                                dict(q28=True, wire=True)])
 def test_refused_features(kw):
     platform = Platform.RP2040 if kw.pop("q28", False) else Platform.RP2350
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -102,3 +102,71 @@ def test_xf_q28_kernel_equals_plain(T, B):
     assert LAUNCHES["xf_q28"] == n0 + 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane,sched", [
+    (True, None), (False, (44, 45, 44, 45)), (False, (44, 1, 45, 7)),
+    (True, (45, 44, 1))], ids=["lane_cf", "sched", "sched_1", "lane_cf+sched"])
+@pytest.mark.parametrize("has_loud,has_env,nb,B", [
+    (True, True, 10, 4100), (False, False, 10, 197), (False, True, 0, 33),
+    (True, False, 2, 64)])
+def test_eq_q28_kernel_modes_equal_plain(has_loud, has_env, nb, B, lane,
+                                         sched):
+    """The cascade kernel's per-lane (lane_cf) and packet-schedule modes
+    against the plain version: coefficients, bypass flags (mixed within a
+    warp) and envelope alphas that differ lane by lane; a periodic 44/45
+    schedule and one with a 1-sample packet; word for word."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    G, tc = 4, 48
+    T = sum(sched) if sched else 2 * tc
+    nr = (2 if has_loud else 0) + nb
+    rng = np.random.default_rng(70 + nb)
+    x = rng.integers(-2**31, 2**31, size=(G, T, B), dtype=np.int64)
+    s0 = rng.integers(-(1 << 20), 1 << 20, size=(G, 2 * nr + has_env, B))
+    if lane:
+        cf = rng.integers(-(1 << 27), 1 << 27, size=(G, nr, 5, B)) >> 2
+        a_rms = rng.integers(200000000, 268000000, size=(G, B))
+        scal = np.stack([rng.integers(0, 2, size=(G, B)),
+                         rng.integers(0, 2, size=(G, B)), a_rms,
+                         (1 << 28) - a_rms], axis=1)
+    else:
+        cf = rng.integers(-(1 << 27), 1 << 27, size=(G, nr, 5)) >> 2
+        a_rms = 260000000 - 9999999 * np.arange(G)
+        scal = np.stack([np.arange(G) % 2, np.arange(G) // 2, a_rms,
+                         (1 << 28) - a_rms], axis=1)
+    args = [torch.from_numpy(v.astype(np.int32))
+            for v in (x, cf, s0, scal)]
+    kw = dict(nb=nb, has_loud=has_loud, has_env=has_env, tc=tc, sched=sched)
+    want = q28_cascades_plain(*args, **kw)
+    n0 = dict(LAUNCHES)
+    got = q28_cascades(*[a.cuda() for a in args], **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["eq_q28"] == n0.get("eq_q28", 0) + 1
+    assert LAUNCHES["eq_q28_lane_cf"] == n0.get("eq_q28_lane_cf", 0) + lane
+    assert LAUNCHES["eq_q28_sched"] == n0.get("eq_q28_sched", 0) + bool(sched)
+    for name, g, w in zip(("y", "env", "state"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(96, 197), (48, 4100)])
+def test_xf_q28_kernel_per_lane_equals_plain(T, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    rng = np.random.default_rng(50 + B)
+    l, r = (rng.integers(-2**31, 2**31, size=(T, B), dtype=np.int64)
+            for _ in range(2))
+    coef = rng.integers(-2**31, 2**31, size=(3, B), dtype=np.int64)
+    s4 = rng.integers(-2**31, 2**31, size=(4, B), dtype=np.int64)
+    args = [torch.from_numpy(v.astype(np.int32)) for v in (l, r, coef, s4)]
+    want = xf_q28_plain(*args)
+    got = xf_q28(*[a.cuda() for a in args])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

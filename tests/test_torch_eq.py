@@ -7,11 +7,14 @@ difference is a fault, not rounding.
   * ``kernels.eq`` band steps vs ``dspi_tpu.chain.pipeline``'s;
   * ``kernels.eq.q28_cascades_plain`` vs a ``lax.scan`` over the JAX band
     steps (``tests/test_eq_pallas.py``'s reference), and, with
-    ``DSPI_TEST_SLOW`` set, vs the Pallas kernel in interpret mode;
+    ``DSPI_TEST_SLOW`` set, vs the Pallas kernel in interpret mode; in the
+    per-lane (``lane_cf``) and packet-schedule modes too, against the same
+    reference written out per lane, with the envelope read at
+    ``cumsum(sched) - 1``;
   * ``kernels.xf_cuda.xf_q28_plain`` vs a ``lax.scan`` of the JAX chain's
-    crossfeed step;
+    crossfeed step, with [3] and per-lane [3, B] coefficients;
   * the front doors on CPU tensors run the plain versions and count no
-    launch; what the port does not run raises, naming ROADMAP.md.
+    launch; arguments they do not take raise.
 """
 
 import os
@@ -176,10 +179,12 @@ def test_cascade_refusals():
     x, cf, s0, scal = map(torch.from_numpy,
                           _cascade_inputs(2, False, True, 2, 2, 3))
     kw = dict(nb=2, has_env=True, tc=TC)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8"):
+    with pytest.raises(ValueError, match="sum to T=96"):
         q28_cascades(x, cf, s0, scal, sched=(44, 45), **kw)
+    with pytest.raises(ValueError, match="sum to T=96"):
+        q28_cascades(x, cf, s0, scal, sched=(96, 0), **kw)
     lane_cf = cf[..., None].expand(2, 2, 5, 3).contiguous()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
+    with pytest.raises(ValueError, match="scal must be"):
         q28_cascades(x, lane_cf, s0, scal, **kw)
     with pytest.raises(ValueError, match="whole packets"):
         q28_cascades(x[:, :50], cf, s0, scal, **kw)
@@ -187,3 +192,122 @@ def test_cascade_refusals():
         q28_cascades(x, cf, s0[:, :4], scal, **kw)
     with pytest.raises(TypeError):
         q28_cascades(x.long(), cf, s0, scal, **kw)
+
+
+# (cf per lane, schedule): the kernel's other modes.  SCHED is periodic (the
+# 44/45 cadence), SCHED1 is not and has a one-sample packet.
+SCHED, SCHED1 = (44, 45, 44, 45), (44, 1, 45, 7)
+MODES = [(True, None), (False, SCHED), (False, SCHED1), (True, SCHED1)]
+MODE_IDS = ["lane_cf", "sched", "sched_1", "lane_cf+sched"]
+
+
+def _general_ref(x, cf, s0, scal, nb, has_loud, has_env, ends):
+    """tests/test_eq_pallas.py's lax.scan reference with per-lane
+    coefficients and scalars (cf [G, nr, 5, B], scal [G, 4, B]; per-cascade
+    ones broadcast the same way) and the envelope read at ``ends``."""
+    G = x.shape[0]
+    n_loud = 2 if has_loud else 0
+    ys, env_ends, sF = [], [], []
+    for g in range(G):
+        def step(carry, xt, g=g):
+            st = list(carry)
+            cur = xt
+            r = 0
+            for j in range(n_loud):
+                cur, (st[r], st[r + 1]) = _tdf2_q28_bypassable(
+                    cf[g, j], (st[r], st[r + 1]), cur, scal[g, j] != 0)
+                r += 2
+            for b in range(nb):
+                cur, (st[r], st[r + 1]) = _band_step_q28(
+                    cf[g, n_loud + b], (st[r], st[r + 1]), cur)
+                r += 2
+            if has_env:
+                st[r] = (jq28_mul(scal[g, 2], st[r])
+                         + jq28_mul(scal[g, 3], jq28_mul(cur, cur)))
+            return tuple(st), ((cur, st[r]) if has_env else cur)
+        carryF, out = lax.scan(step, tuple(s0[g]), x[g])
+        y_g, env_g = out if has_env else (out, None)
+        ys.append(y_g)
+        if has_env:
+            env_ends.append(env_g[np.asarray(ends)])
+        sF.append(jnp.stack(carryF))
+    return (jnp.stack(ys), jnp.stack(env_ends) if has_env else None,
+            jnp.stack(sF))
+
+
+def _mode_inputs(seed, has_loud, has_env, nb, G, B, lane, sched):
+    """_cascade_inputs over sum(sched) samples; with ``lane``, coefficients,
+    bypass flags (mixed within a cascade) and envelope alphas that differ
+    lane by lane."""
+    rng = np.random.default_rng(seed)
+    T = sum(sched) if sched else 2 * TC
+    n_loud = 2 if has_loud else 0
+    nr = n_loud + nb
+    x = _i32(rng, -(1 << 27), 1 << 27, (G, T, B))
+    s0 = _i32(rng, -(1 << 20), 1 << 20, (G, 2 * nr + has_env, B))
+    if not lane:
+        _, cf, _, scal = _cascade_inputs(seed, has_loud, has_env, nb, G, B)
+        return x, cf, s0, scal
+    cf = _i32(rng, -(1 << 27), 1 << 27, (G, nr, 5, B)) >> 2
+    a_rms = _i32(rng, 200000000, 268000000, (G, B))
+    scal = np.stack([_i32(rng, 0, 2, (G, B)), _i32(rng, 0, 2, (G, B)),
+                     a_rms, (1 << 28) - a_rms], axis=1)
+    return x, cf, s0, scal
+
+
+@pytest.mark.parametrize("lane,sched", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("has_loud,has_env,nb", [
+    (True, True, 4), (False, True, 0), (True, False, 2)])
+def test_plain_cascade_modes_match_scan(has_loud, has_env, nb, lane, sched):
+    G, B = 2, 5
+    x, cf, s0, scal = _mode_inputs(31 + nb, has_loud, has_env, nb, G, B,
+                                   lane, sched)
+    ends = np.cumsum(sched or (TC,) * 2) - 1
+    want = _general_ref(*map(jnp.asarray, (x, cf, s0, scal)), nb, has_loud,
+                        has_env, ends)
+    got = q28_cascades_plain(*map(torch.from_numpy, (x, cf, s0, scal)), nb=nb,
+                             has_loud=has_loud, has_env=has_env, tc=TC,
+                             sched=sched)
+    if has_env:
+        assert got[1].shape == (G, len(ends), B)
+    _assert_same(got, want)
+
+
+def test_plain_cascade_modes_match_pallas_interpret():
+    """The Pallas kernel's lane_cf mode with a schedule (its dense envelope,
+    time padding and packet-end gather), in interpret mode."""
+    if not os.environ.get("DSPI_TEST_SLOW"):
+        pytest.skip("pallas interpret mode is slow on CPU; set "
+                    "DSPI_TEST_SLOW=1 to run")
+    from dspi_tpu.kernels.eq_pallas import q28_cascades as pallas_cascades
+
+    has_loud, has_env, nb, G, B = True, True, 3, 2, 256
+    x, cf, s0, scal = _mode_inputs(9, has_loud, has_env, nb, G, B, True,
+                                   SCHED1)
+    want = pallas_cascades(*map(jnp.asarray, (x, cf, s0, scal)), nb=nb,
+                           has_loud=has_loud, has_env=has_env, tc=TC,
+                           sched=SCHED1, bt=128, interpret=True)
+    got = q28_cascades_plain(*map(torch.from_numpy, (x, cf, s0, scal)), nb=nb,
+                             has_loud=has_loud, has_env=has_env, tc=TC,
+                             sched=SCHED1)
+    _assert_same(got, want)
+
+
+def test_xf_plain_per_lane_matches_jax_scan():
+    """[3, B] coefficients (per-stream parameters) against the JAX chain's
+    crossfeed step fed the same per-lane vectors."""
+    rng = np.random.default_rng(23)
+    T, B = 96, 4
+    l, r = (_i32(rng, -2**31, 2**31, (T, B)) for _ in range(2))
+    coef = _i32(rng, -2**31, 2**31, (3, B))
+    s4 = _i32(rng, -(1 << 24), 1 << 24, (4, B))
+    want = _xf_scan_ref(*map(jnp.asarray, (l, r, coef, s4)))
+    got = xf_q28_plain(*map(torch.from_numpy, (l, r, coef, s4)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # a per-lane column of one value is the [3] form's word for word
+    same = xf_q28_plain(*map(torch.from_numpy, (
+        l, r, np.repeat(coef[:, :1], B, 1), s4)))
+    for u, v in zip(same, xf_q28_plain(*map(torch.from_numpy, (
+            l, r, coef[:, 0].copy(), s4)))):
+        assert torch.equal(u, v)

@@ -108,16 +108,27 @@ def test_from_numpy_round_trip(name):
 
 
 def test_per_stream_params_refused():
+    """Per-stream float trees are refused (the float chain's grouped
+    serving is ROADMAP.md item 11b); per-stream Q28 trees load."""
     cfg = bench.full_chain_config(JPlatform.RP2350)
     jd = jderive(cfg)
     jst = jpack.build_static(jd, block_size=48)
     multi = jpack.build_params_multi([jd, jd], jst)
     multi = multi._replace(xf=np.stack([multi.xf, multi.xf], -1))
     js = jpack.init_state(jst, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11b"):
         pack.from_numpy(multi, js, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pack.build_params_multi([jd], jst)
+    with pytest.raises(ValueError, match="scan path"):
+        pack.build_params_multi([derive(_convert(cfg))], pack.build_static(
+            derive(_convert(cfg)), block_size=48))
+    qd = [jderive(rich_config(JPlatform.RP2040)) for _ in range(2)]
+    qd[1].config.master_volume_db = -20.0
+    qd[1] = jderive(qd[1].config)
+    qst = jpack.build_static(qd[0], block_size=48, mxu=False)
+    qmulti = jpack.build_params_multi(qd, qst)
+    p, _ = pack.from_numpy(qmulti, jpack.init_state(qst, 2), "cpu")
+    assert p.master_vol.shape == (2,)
+    _eq_tree(pack.to_numpy(p), qmulti)
 
 
 def test_engine_without_device_needs_a_card():
