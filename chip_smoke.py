@@ -13,8 +13,10 @@ Phases (each prints one line; any failure exits non-zero):
      ragged edge), three 96-sample segments with per-lane enable flips
      (fade-out, stop, restart, mid-fade re-enable); words and all 16 state
      rows bit-equal.  Then the kernel alone at the headline shape
-     (16384 streams x 6144 samples), timed with CUDA events, beside its
-     bound.
+     (16384 streams x 6144 samples) and at the hetero path's 17408 lanes,
+     timed with CUDA events, beside its bound (the function's pinned
+     operation counts, PDM_OPS) and the build's own SASS counts; both
+     calls are held against the plain version in phase 12
   4. Q28 cascade kernel vs its plain version on the card: 4100 streams, two
      packets, (loudness, envelope, bands) = (no, no, 3), (yes, no, 2),
      (no, yes, 0), (yes, yes, 10), (no, no, 10), bypass flags and envelope
@@ -30,17 +32,21 @@ Phases (each prints one line; any failure exits non-zero):
      chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
      samples with state carried and a fresh input each (x ^ i); launch
      counts reset just before and read just after; per-segment time and
-     real-time factor
+     real-time factor.  Then the PDM call of one more segment, timed alone
+     on the path's own arguments beside its bound and held against the
+     plain version in phase 12
   7. card vs CPU on the float chain at 8 streams: out/s24 <= 1e-6 relative
      RMS, PDM words equal up to the first differing modulator input
   8. the Q28 main path at full width: Engine on the RP2040 headline chain
      (full_chain_config, 7 channels), the same geometry, 16- and 24-bit
      input, 4 chained segments each; fails unless a segment launches the
      cascade kernel twice, the crossfeed kernel once and the PDM kernel
-     once.  Then the cascade and crossfeed kernels alone, on the very
-     arguments the path gave them, timed with CUDA events, beside their
-     bounds; and each of those calls at its full shape held word for word
-     against the plain version run on the CPU over 128 of its streams
+     once.  Then the cascade, crossfeed and PDM kernels alone, on the
+     very arguments the path gave them, timed with CUDA events, beside
+     their bounds (the crossfeed's from XF_OPS and the PDM kernel's from
+     PDM_OPS, with the build's own SASS counts beside); and each of those
+     calls at its full shape held word for word against the plain version
+     run on the CPU over 128 of its streams (the PDM calls in phase 12)
   9. card vs CPU on the Q28 chain at 8 streams, 16- and 24-bit: every
      output word and every state word equal
  10. the multi-tenant path at full width: HeteroServer over 8 configs of
@@ -55,9 +61,14 @@ Phases (each prints one line; any failure exits non-zero):
  11. card vs CPU on both: a HeteroServer of 3 configs over 24 scattered
      streams, 2 segments with an update_group between; a 44.1 kHz Engine
      at 8 streams, 2 segments; every output word and every state word equal
- 12. one JSON line {"kernels": [...]} for every kernel of the port and each
+ 12. the PDM kernel's calls at full length (the two timed in phase 3 and
+     the one of each path in phases 6, 8 and 10) against the plain
+     version on the CPU over the first and the last 64 lanes of each, all
+     lanes of one segment length in one plain call (its time goes by
+     samples, not lanes): every word and state word equal
+ 13. one JSON line {"kernels": [...]} for every kernel of the port and each
      mode of the cascade kernel
- 13. last line: {"ok": true, "device": {...}}
+ 14. last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports nothing of JAX or of the JAX package.
@@ -89,6 +100,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # counted in the SASS, build.loop_counts; profile_torch.py prints the same
 # counts), in SM clocks at the card's maximum SM clock, read at run time.
 # Its bound is that or the bytes' time, whichever is longer.
+# For the cascade kernel the SASS counts are read from the build being
+# measured.  For the PDM modulator and the crossfeed they are pinned, so
+# that a redesign is measured against the same work as the design before
+# it: the counts a sample of their sample loops in the SASS of commit
+# f15a17e's sources (one thread a stream, a sample an iteration; nvcc with
+# build.NVCC_FLAGS for sm_90a, read with compare_kernels.py).  The new
+# builds' own counts are printed beside them.
 PIPE_OPS_PER_SM_CLOCK = 64
 ISSUE_PER_SM_CLOCK = 128
 # multiplies of two run-time values each function needs: fast_mul_q28 is
@@ -97,6 +115,8 @@ ISSUE_PER_SM_CLOCK = 128
 # modulator's multiplies on the enabled, unfaded path are all by
 # constants, which shifts and adds can do, so it needs none.
 MUL_PER_BAND, MUL_PER_ENV, MUL_XF, MUL_PDM = 15, 9, 24, 0
+PDM_OPS = {"alu_only": 851.0, "arith": 1744.0}
+XF_OPS = {"alu_only": 25.5, "arith": 74.5}
 
 
 def fail(msg: str) -> None:
@@ -124,6 +144,24 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _edge_lanes(b: int, dev) -> torch.Tensor:
+    """The first and the last 64 of ``b`` lanes."""
+    return torch.cat([torch.arange(64), torch.arange(b - 64, b)]).to(dev)
+
+
+# PDM kernel calls waiting for phase_pdm_plain: (label, x, s16, words,
+# s16') of each, cut to _edge_lanes, on the CPU
+PDM_HELD: list = []
+
+
+def hold_pdm(label: str, x, s16, got) -> None:
+    """Queue one PDM kernel call (x [T, B], s16 [16, B] -> ``got`` = (words,
+    s16')) for phase_pdm_plain."""
+    idx = _edge_lanes(x.shape[-1], x.device)
+    PDM_HELD.append((label, *(v.index_select(-1, idx).cpu()
+                              for v in (x, s16, *got))))
 
 
 def _smi(query: str) -> str:
@@ -251,14 +289,24 @@ def phase_pdm(dev) -> dict:
     s16[9] = 1
     s16[10] = 1
     ms = cuda_ms(lambda: pdm_cuda.pdm_words(x, s16), reps=5)
-    nbytes = 4 * T * B + 32 * T * B + 2 * 64 * B
-    bound_ms, by, text = bound(
-        work(sample_ops("pdm", "pdm_kernel", 1), MUL_PDM, T * B), nbytes)
+    hold_pdm(f"{T}x{B}", x, s16, pdm_cuda.pdm_words(x, s16))
+    bound_ms, by, text = bound(*_pdm_work(T, B))
+    # the hetero path's lane count: 17408 = 8 buckets of 2176
+    B2 = 17408
+    x2 = torch.randint(-(1 << 28), 1 << 28, (T, B2), generator=gen,
+                       dtype=torch.int32, device=dev)
+    s2 = s16[:, :1].repeat(1, B2)
+    ms2 = cuda_ms(lambda: pdm_cuda.pdm_words(x2, s2), reps=5)
+    hold_pdm(f"{T}x{B2}", x2, s2, pdm_cuda.pdm_words(x2, s2))
     print(f"pdm: kernel == plain on 4100 streams x 3 x 96 samples "
           f"(fade-out, stop, restart, mid-fade re-enable); plain "
           f"{plain_ms:.1f} ms / kernel {kern_small_ms:.3f} ms per segment "
           f"there; headline {T}x{B}: kernel {ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms by {by} ({text})", flush=True)
+          f"{bound_ms:.3f} ms by {by} ({text}); {T}x{B2}: kernel "
+          f"{ms2:.3f} ms ({ms2 / ms:.3f}x), both held for the plain "
+          f"version; this build's SASS a sample "
+          f"{sample_ops('pdm', 'pdm_kernel', 'ldg', 1)} (pinned "
+          f"{PDM_OPS})", flush=True)
     return {"name": "pdm_modulator", "route": "cuda",
             "source": "dspi_tpu_torch/kernels/csrc/pdm.cu",
             "replaces": "dspi_tpu/kernels/pdm_pallas.py:138",
@@ -266,11 +314,13 @@ def phase_pdm(dev) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": None, "equal_to_plain": True,
             "shape": [T, B], "plain_shape": [2 * BLOCK, 4100],
-            "kernel_ms_at_plain_shape": kern_small_ms}
+            "kernel_ms_at_plain_shape": kern_small_ms,
+            "ms_at_17408_lanes": ms2}
 
 
 def phase_main(dev, card: str) -> dict:
-    """The float main path at full width (drive_path)."""
+    """The float main path at full width (drive_path), then its PDM call
+    of one more segment (record_calls)."""
     from dspi_tpu_torch import Platform
     from dspi_tpu_torch.chain import Engine
     from dspi_tpu_torch.configs import full_chain_config
@@ -285,9 +335,11 @@ def phase_main(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     x = torch.randint(-16000, 16000, (PACKETS, 2, BLOCK, STREAMS),
                       generator=gen, dtype=torch.int32, device=dev)
-    return drive_path(dev, card, "main path", eng, x,
-                      STREAMS * PACKETS * BLOCK / RATE, {"pdm": 1}, 11,
-                      peak_max=32767)["launches"]
+    result = drive_path(dev, card, "main path", eng, x,
+                        STREAMS * PACKETS * BLOCK / RATE, {"pdm": 1}, 11,
+                        peak_max=32767)
+    result["calls"] = record_calls(eng, x, "main path", kinds=("pdm",))
+    return result
 
 
 def phase_card_vs_cpu(dev) -> None:
@@ -525,7 +577,14 @@ def _eq_work(a, k) -> tuple[dict, int]:
     nbytes = 4 * (2 * x.numel() + (G * npkt * B if env else 0)
                   + 2 * s0.numel() + cf.numel() + scal.numel()
                   + (npkt if sched and env else 0))
-    return work(sample_ops("eq_q28", inst, 1), mul, G * T * B), nbytes
+    return work(sample_ops("eq_q28", inst, "ldg", 1), mul, G * T * B), nbytes
+
+
+def _pdm_work(T: int, B: int) -> tuple[dict, int]:
+    """(operations, bytes) of one PDM call over T samples of B modulating
+    streams: the pinned counts, the input and the words once, the state in
+    and out."""
+    return work(PDM_OPS, MUL_PDM, T * B), 4 * T * B + 32 * T * B + 2 * 64 * B
 
 
 @functools.lru_cache(maxsize=None)
@@ -535,16 +594,15 @@ def _sass(lib: str) -> str:
     return build.sass(lib)
 
 
-def sample_ops(lib: str, kernel: str, loads: int) -> dict:
+def sample_ops(lib: str, kernel: str, op: str, per: int) -> dict:
     """ALU-only and all per-thread arithmetic instructions per sample and
-    thread of a kernel's sample loop, from its SASS; ``loads`` is its
-    global loads per sample."""
+    thread of a kernel's sample loop, from its SASS; the loop's samples
+    an iteration are its count of ``op`` over ``per``, that
+    instruction's count a sample (build.per_sample)."""
     from dspi_tpu_torch.kernels import build
 
-    c = build.loop_counts(_sass(lib), kernel)
-    samples = c["ldg"] / loads                 # samples per loop iteration
-    return {"alu_only": c["alu_only"] / samples,
-            "arith": (c["imad"] + c["alu"]) / samples}
+    c = build.per_sample(build.loop_counts(_sass(lib), kernel), op, per)
+    return {"alu_only": c["alu_only"], "arith": c["arith"]}
 
 
 def work(per_sample: dict, mul: int, n: int) -> dict:
@@ -625,14 +683,17 @@ def drive_path(dev, card: str, label: str, eng, x, audio_s: float,
             "rtf": rtf, "peak_gb": peak_gb}
 
 
-def record_calls(eng, x, label: str) -> list:
-    """Each cascade and crossfeed call of one more segment, timed alone on
-    its own arguments beside its bound, then held at its full shape against
-    the plain version on the CPU over 128 of its streams."""
+def record_calls(eng, x, label: str,
+                 kinds: tuple = ("eq", "xf", "eq", "pdm")) -> list:
+    """Each cascade, crossfeed and PDM call of one more segment (fails
+    unless they are ``kinds``, in order), timed alone on its own arguments
+    beside its bound, then held at its full shape against the plain
+    version on the CPU over 128 of its streams (check_path_call)."""
     from dspi_tpu_torch.chain import pipeline
+    from dspi_tpu_torch.kernels import pdm_cuda
 
     calls = []
-    saved = pipeline.q28_cascades, pipeline.xf_q28
+    saved = pipeline.q28_cascades, pipeline.xf_q28, pdm_cuda.pdm_words
 
     def recorder(fn, kind):
         def call(*a, **k):
@@ -642,10 +703,13 @@ def record_calls(eng, x, label: str) -> list:
 
     pipeline.q28_cascades = recorder(saved[0], "eq")
     pipeline.xf_q28 = recorder(saved[1], "xf")
+    pdm_cuda.pdm_words = recorder(saved[2], "pdm")
     try:
         eng.process(x ^ (SEGMENTS + 1))
     finally:
-        pipeline.q28_cascades, pipeline.xf_q28 = saved
+        pipeline.q28_cascades, pipeline.xf_q28, pdm_cuda.pdm_words = saved
+    if tuple(kind for kind, *_ in calls) != kinds:
+        fail(f"{label} segment made calls {[c[0] for c in calls]}")
     rows = []
     for kind, fn, a, k in calls:
         ms = cuda_ms(lambda: fn(*a, **k), reps=5)
@@ -655,22 +719,36 @@ def record_calls(eng, x, label: str) -> list:
                      "has_env": k.get("has_env", False),
                      "lane_cf": a[1].dim() == 4,
                      "sched": bool(k.get("sched"))}
-        else:
+        elif kind == "xf":
             T, B = a[0].shape
-            ops = work(sample_ops("xf_q28", "xf_kernel", 2), MUL_XF, T * B)
+            ops = work(XF_OPS, MUL_XF, T * B)
             nbytes = 4 * (4 * T * B + 8 * B + a[2].numel())
-            extra = {"lane_cf": a[2].dim() == 2}
+            extra = {"lane_cf": a[2].dim() == 2,
+                     "sass_per_sample": sample_ops("xf_q28", "xf_kernel",
+                                                   "stg", 2)}
+        else:
+            ops, nbytes = _pdm_work(*a[0].shape)
+            extra = {"sass_per_sample": sample_ops("pdm", "pdm_kernel",
+                                                   "ldg", 1)}
         bound_ms, by, text = bound(ops, nbytes)
         rows.append({"kind": kind, "shape": list(a[0].shape), "ms": ms,
                      "bound_ms": bound_ms, "bound_by": by, "ops": ops,
                      "bytes": nbytes, "work": text, **extra})
-    if [r["kind"] for r in rows] != ["eq", "xf", "eq"]:
-        fail(f"{label} segment made calls {[r['kind'] for r in rows]}")
+    pinned = {"xf": XF_OPS, "pdm": PDM_OPS}
     for r in rows:
+        sass = (f"; this build's SASS a sample {r['sass_per_sample']} "
+                f"(pinned {pinned[r['kind']]})" if r["kind"] in pinned
+                else "")
         print(f"  {r['kind']} {r['shape']}: kernel {r['ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['work']})",
-              flush=True)
+              f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['work']})"
+              f"{sass}", flush=True)
     for (kind, fn, a, k), r in zip(calls, rows):
+        if kind == "pdm":
+            hold_pdm(f"{label} {list(a[0].shape)}", *a, fn(*a))
+            print(f"  pdm {r['shape']}: streams 0-63 and {r['shape'][1] - 64}"
+                  f"-{r['shape'][1] - 1} held for the plain version at full "
+                  f"length", flush=True)
+            continue
         r.update(check_path_call(kind, fn, a, k))
         print(f"  {kind} {r['shape']}: kernel == plain version on the "
               f"path's arguments, at full length, on streams "
@@ -777,8 +855,7 @@ def check_path_call(kind, fn, a, k) -> dict:
     from dspi_tpu_torch.kernels.xf_cuda import xf_q28_plain
 
     B = a[0].shape[-1]
-    idx = torch.cat([torch.arange(64),
-                     torch.arange(B - 64, B)]).to(a[0].device)
+    idx = _edge_lanes(B, a[0].device)
     got = fn(*a, **k)
 
     def cut(v):
@@ -895,6 +972,34 @@ def phase_new_paths_card_vs_cpu(dev) -> None:
           "word equal", flush=True)
 
 
+def phase_pdm_plain() -> dict:
+    """Every PDM call held by hold_pdm against the plain version on the
+    CPU, word for word: the held lanes of all calls of one segment length
+    side by side in one plain call."""
+    from dspi_tpu_torch.kernels.pdm import pdm_words_plain
+
+    by_len: dict = {}
+    for held in PDM_HELD:
+        by_len.setdefault(held[1].shape[0], []).append(held)
+    t0 = time.perf_counter()
+    for items in by_len.values():
+        x, s16 = (torch.cat([h[i] for h in items], -1) for i in (1, 2))
+        words, s_out = pdm_words_plain(x, s16)
+        lo = 0
+        for label, xi, _, w, s in items:
+            hi = lo + xi.shape[-1]
+            if not (torch.equal(words[..., lo:hi], w)
+                    and torch.equal(s_out[:, lo:hi], s)):
+                fail(f"PDM kernel != plain version on {label}")
+            lo = hi
+    plain_s = time.perf_counter() - t0
+    labels = [h[0] for h in PDM_HELD]
+    print(f"pdm at full length: kernel == plain version (CPU, {plain_s:.1f} "
+          f"s) on the first and last 64 lanes of {labels}", flush=True)
+    return {"equal_to_plain_at_path_shape": labels,
+            "plain_cpu_s_at_path_shape": plain_s}
+
+
 def _path_rows(calls: list, kind: str) -> dict:
     """ms, bound and what bounds it of one kernel's calls in one segment
     of a path, summed."""
@@ -914,7 +1019,7 @@ def main() -> None:
     eq_row = phase_eq(dev)
     mode_times = phase_eq_modes(dev)
     xf_row = phase_xf(dev)
-    launches = phase_main(dev, card)
+    main_path = phase_main(dev, card)
     phase_card_vs_cpu(dev)
     q28 = phase_q28_main(dev, card, 16, record=True)
     q28_24 = phase_q28_main(dev, card, 24, record=False)
@@ -922,10 +1027,12 @@ def main() -> None:
     hetero = phase_hetero(dev, card)
     s441 = phase_44k1(dev, card)
     phase_new_paths_card_vs_cpu(dev)
+    pdm_row.update(phase_pdm_plain())
 
     # launches: each path's counted run (4 segments each; the Q28 chain at
     # 16-bit and at 24-bit)
-    paths = {"rp2350_float": launches, "rp2040_q28_16bit": q28["launches"],
+    paths = {"rp2350_float": main_path["launches"],
+             "rp2040_q28_16bit": q28["launches"],
              "rp2040_q28_24bit": q28_24["launches"],
              "rp2040_q28_hetero": hetero["launches"],
              "rp2040_q28_44k1": s441["launches"]}
@@ -962,6 +1069,11 @@ def main() -> None:
     # the scalar mode's time and bound per segment: its two calls
     eq_row.update(_path_rows(q28["calls"], "eq"))
     xf_call = next(c for c in q28["calls"] if c["kind"] == "xf")
+    pdm_row["path_calls"] = {
+        p: next(c for c in r["calls"] if c["kind"] == "pdm")
+        for p, r in (("rp2350_float", main_path), ("rp2040_q28_16bit", q28),
+                     ("rp2040_q28_hetero", hetero),
+                     ("rp2040_q28_44k1", s441))}
     xf_row.update(ms=xf_call["ms"], bound_ms=xf_call["bound_ms"],
                   bound_by=xf_call["bound_by"], shape=xf_call["shape"],
                   hetero_call=next(c for c in hetero["calls"]

@@ -5,8 +5,8 @@ interface (no PyTorch headers, so a build takes seconds).  Libraries land
 in ``dspi_tpu_torch/_build/`` (git-ignored), named by a hash of the source
 and the flags, so an edited source is rebuilt and a stale library is never
 loaded.  ``build_all`` starts one nvcc per missing source, all at once.
-``sass`` and ``loop_counts`` read a built kernel's machine code, so that
-measurements can count the instructions of its sample loop.
+``sass``, ``loop_counts`` and ``per_sample`` read a built kernel's machine
+code, so that measurements can count the instructions of its sample loop.
 
 Nothing here runs at import time: the CPU-only hosts that run the tests
 have no nvcc.
@@ -29,7 +29,7 @@ SOURCES = ("pdm", "eq_q28", "xf_q28")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, Path], ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -43,58 +43,71 @@ def nvcc() -> str:
     return str(path)
 
 
-def lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+def lib_path(name: str, src_dir: Path = SRC_DIR) -> Path:
+    """Where ``<src_dir>/<name>.cu``'s library goes: named by a hash of the
+    source and the flags, so sources of the same name from two directories
+    (another revision's, for a comparison) do not collide."""
+    src = (Path(src_dir) / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every missing library, one nvcc process per source, run in
-    parallel.  Returns {name: {"seconds": wall, "log": ptxas report}};
-    raises with nvcc's output if any build fails."""
+def build_all(names=SOURCES, src_dirs=(SRC_DIR,)) -> dict:
+    """Compile every missing library of ``names`` in each of ``src_dirs``,
+    one nvcc process per source, all run in parallel.  Returns {name (or
+    "<dir>/<name>" outside csrc/): {"seconds": wall, "log": ptxas
+    report}}; raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+    outs = set()
+    for src_dir in map(Path, src_dirs):
+        for name in names:
+            out = lib_path(name, src_dir)
+            if out.exists() or out in outs:     # built, or the same source
+                continue
+            outs.add(out)
+            key = name if src_dir == SRC_DIR else f"{src_dir}/{name}"
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(src_dir / f"{name}.cu")]
+            procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, out)
     report = {}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for key, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{log}")
+            failed.append(f"{key}.cu:\n{log}")
             continue
         os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        report[key] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built at first use."""
-    lib = _LIBS.get(name)
+def load(name: str, src_dir: Path = SRC_DIR) -> ctypes.CDLL:
+    """The loaded library for ``<src_dir>/<name>.cu``, built at first
+    use."""
+    key = (name, Path(src_dir))
+    lib = _LIBS.get(key)
     if lib is None:
-        path = lib_path(name)
+        path = lib_path(name, src_dir)
         if not path.exists():
-            build_all((name,))
+            build_all((name,), (src_dir,))
         lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
 
 
 # SASS opcodes (before the first '.') that are not per-thread arithmetic
 _CONTROL = {"BRA", "BRX", "JMP", "CALL", "RET", "EXIT", "BSSY", "BSYNC",
-            "BPT", "NOP", "WARPSYNC", "BAR", "YIELD"}
-_MEMORY = {"LDG", "STG", "LDC", "LD", "ST", "LDS", "STS", "LDL", "STL"}
+            "BPT", "NOP", "WARPSYNC", "BAR", "YIELD", "DEPBAR"}
+# LDGSTS is cp.async (a global -> shared copy), LDGDEPBAR its commit
+_MEMORY = {"LDG", "STG", "LDC", "LD", "ST", "LDS", "STS", "LDL", "STL",
+           "LDGSTS", "LDGDEPBAR"}
 # integer ALU instructions that an IMAD form can stand in for (adds, moves,
 # plain left shifts and shift-adds: IMAD.IADD, IMAD.MOV, IMAD.SHL), so
 # either pipe may issue them; every other ALU instruction (right and funnel
@@ -105,11 +118,13 @@ _SASS_LINE = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def sass(name: str) -> str:
-    """The SASS of ``csrc/<name>.cu``'s library (cuobjdump beside nvcc)."""
-    load(name)
+def sass(name: str, src_dir: Path = SRC_DIR) -> str:
+    """The SASS of ``<src_dir>/<name>.cu``'s library (cuobjdump beside
+    nvcc)."""
+    load(name, src_dir)
     cuobjdump = Path(nvcc()).with_name("cuobjdump")
-    return subprocess.run([str(cuobjdump), "-sass", str(lib_path(name))],
+    return subprocess.run([str(cuobjdump), "-sass",
+                           str(lib_path(name, src_dir))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
 
@@ -122,8 +137,9 @@ def loop_counts(sass_text: str, kernel: str) -> dict:
     opcode, ``imad`` the integer multiply-adds (IMAD*, which issue to the
     FMA pipe), ``alu`` the rest of the per-thread arithmetic (the integer
     ALU; not control, memory, uniform or special), ``alu_only`` those of
-    them that no IMAD form can stand in for, ``ldg``/``stg`` the global
-    loads and stores, ``instructions`` all of them."""
+    them that no IMAD form can stand in for, ``ldg``/``stg``/``lds``/
+    ``ldgsts`` the global loads and stores, shared loads and asynchronous
+    global -> shared copies, ``instructions`` all of them."""
     code = sass_text[sass_text.index(kernel):]
     if "Function :" in code:
         code = code[:code.index("Function :")]
@@ -148,6 +164,21 @@ def loop_counts(sass_text: str, kernel: str) -> dict:
                  if base[op] in _EITHER_BASE or op in _EITHER_OP)
     return {"hist": hist, "imad": imad, "alu": arith - imad,
             "alu_only": arith - imad - either,
-            "ldg": sum(n for op, n in hist.items() if base[op] == "LDG"),
-            "stg": sum(n for op, n in hist.items() if base[op] == "STG"),
+            **{k.lower(): sum(n for op, n in hist.items() if base[op] == k)
+               for k in ("LDG", "STG", "LDS", "LDGSTS")},
             "instructions": sum(hist.values()), "head": head, "end": end}
+
+
+def per_sample(counts: dict, op: str, per: int) -> dict:
+    """ALU-only and all per-thread arithmetic instructions a sample of a
+    loop from ``loop_counts``, taking the loop's samples per iteration as
+    its count of ``op`` ("ldg", "stg", "lds", ...) over ``per``, that
+    instruction's count a sample: a loop that reads its inputs from shared
+    memory has no global loads, and an unrolled loop walks several
+    samples an iteration."""
+    samples = counts[op] / per
+    if not samples:
+        raise ValueError(f"the sample loop has no {op.upper()}")
+    return {"alu_only": counts["alu_only"] / samples,
+            "arith": (counts["imad"] + counts["alu"]) / samples,
+            "samples_per_iteration": samples}

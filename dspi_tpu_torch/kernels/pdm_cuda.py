@@ -21,14 +21,30 @@ from .pdm import mode_prologue, pdm_words_plain
 _I32 = torch.int32
 
 
-def _lib():
-    lib = build.load("pdm")
+def bind(lib: ctypes.CDLL):
+    """``lib``'s ``dspi_pdm_segment`` with its C signature set."""
     fn = lib.dspi_pdm_segment
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(fn, x: torch.Tensor, s16: torch.Tensor):
+    """One launch of ``fn``, a bound ``dspi_pdm_segment`` (this repo's, or
+    another revision's for a comparison), on checked, contiguous, non-empty
+    CUDA tensors: (words, s16')."""
+    T, B = x.shape
+    words = torch.empty((T, 8, B), dtype=_I32, device=x.device)
+    s_out = torch.empty_like(s16)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), s16.data_ptr(), words.data_ptr(),
+                s_out.data_ptr(), T, B, stream)
+    if rc != 0:
+        raise RuntimeError(f"PDM kernel launch failed: CUDA error {rc}")
+    return words, s_out
 
 
 def _check(x: torch.Tensor, s16: torch.Tensor):
@@ -55,17 +71,10 @@ def pdm_words(x: torch.Tensor, s16: torch.Tensor):
     T, B = x.shape
     if T >= 2**31 or B >= 2**31:
         raise ValueError(f"segment too large: {T} x {B}")
-    words = torch.empty((T, 8, B), dtype=_I32, device=x.device)
-    s_out = torch.empty_like(s16)
     if T == 0 or B == 0:
-        return words, s16.clone()
-    fn = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), s16.data_ptr(), words.data_ptr(),
-                s_out.data_ptr(), T, B, stream)
-    if rc != 0:
-        raise RuntimeError(f"PDM kernel launch failed: CUDA error {rc}")
+        return (torch.empty((T, 8, B), dtype=_I32, device=x.device),
+                s16.clone())
+    words, s_out = launch(bind(build.load("pdm")), x, s16)
     LAUNCHES["pdm"] += 1
     return words, s_out
 

@@ -57,13 +57,31 @@ def xf_q28_plain(l, r, coef, s4):
     return out_l, out_r, torch.stack([lpL, lpR, apL, apR])
 
 
-def _lib():
-    fn = build.load("xf_q28").dspi_xf_q28
+def bind(lib: ctypes.CDLL):
+    """``lib``'s ``dspi_xf_q28`` with its C signature set."""
+    fn = lib.dspi_xf_q28
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(fn, l, r, coef, s4):
+    """One launch of ``fn``, a bound ``dspi_xf_q28`` (this repo's, or
+    another revision's for a comparison), on checked, contiguous, non-empty
+    CUDA tensors: (out_l, out_r, s4')."""
+    T, B = l.shape
+    out_l, out_r = torch.empty_like(l), torch.empty_like(r)
+    s_out = torch.empty_like(s4)
+    stream = torch.cuda.current_stream(l.device).cuda_stream
+    with torch.cuda.device(l.device):
+        rc = fn(l.data_ptr(), r.data_ptr(), coef.data_ptr(), s4.data_ptr(),
+                out_l.data_ptr(), out_r.data_ptr(), s_out.data_ptr(), T, B,
+                int(coef.dim() == 2), stream)
+    if rc != 0:
+        raise RuntimeError(f"crossfeed kernel launch failed: CUDA error {rc}")
+    return out_l, out_r, s_out
 
 
 def xf_q28(l, r, coef, s4):
@@ -78,16 +96,8 @@ def xf_q28(l, r, coef, s4):
     T, B = l.shape
     if T >= 2**31 or B >= 2**31:
         raise ValueError(f"segment too large: {T} x {B}")
-    out_l, out_r = torch.empty_like(l), torch.empty_like(r)
     if T == 0 or B == 0:
-        return out_l, out_r, s4.clone()
-    s_out = torch.empty_like(s4)
-    stream = torch.cuda.current_stream(l.device).cuda_stream
-    with torch.cuda.device(l.device):
-        rc = _lib()(l.data_ptr(), r.data_ptr(), coef.data_ptr(),
-                    s4.data_ptr(), out_l.data_ptr(), out_r.data_ptr(),
-                    s_out.data_ptr(), T, B, int(coef.dim() == 2), stream)
-    if rc != 0:
-        raise RuntimeError(f"crossfeed kernel launch failed: CUDA error {rc}")
+        return torch.empty_like(l), torch.empty_like(r), s4.clone()
+    out = launch(bind(build.load("xf_q28")), l, r, coef, s4)
     LAUNCHES["xf_q28"] += 1
-    return out_l, out_r, s_out
+    return out

@@ -21,8 +21,10 @@ cannot overlap and the sum is slower than an unwrapped segment).
 Last, it counts the instructions of each CUDA kernel's per-sample loop in
 the SASS of the built libraries (cuobjdump), by opcode and by pipe (the
 integer multiply-adds, IMAD*, issue to the FMA pipe; the other per-thread
-arithmetic to the integer ALU), which checks the operation counts that
-chip_smoke.py's bounds assume; the SASS goes to chiprun_out/<lib>_sass.txt.
+arithmetic to the integer ALU), in all and a sample (the loop's samples
+an iteration from its global loads, or from its stores where it reads
+shared memory), which checks the operation counts that chip_smoke.py's
+bounds assume; the SASS goes to chiprun_out/<lib>_sass.txt.
 """
 
 from __future__ import annotations
@@ -38,19 +40,21 @@ import torch
 STREAMS, PACKETS, BLOCK = 16384, 128, 48
 SCHED441 = ((44,) * 9 + (45,)) * 13
 PATHS = ("rp2350", "rp2040", "rp2040_hetero", "rp2040_44k1")
-# (library, a piece of the kernel's mangled name, label): the cascade
+# (library, a piece of the kernel's mangled name, label, the memory op
+# that counts the loop's samples, its count a sample): the cascade
 # kernel's instantiations <NB, LOUD, ENV, LANE> that the paths launch (the
-# schedule mode runs the uniform instances)
-_LOOPS = (("pdm", "pdm_kernel", "pdm"),
+# schedule mode runs the uniform instances); the crossfeed reads its
+# inputs from shared memory and stores two words a sample
+_LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
           ("eq_q28", "cascade_kernelILi10ELb1ELb1ELb0E",
-           "eq master <10,1,1,0>"),
+           "eq master <10,1,1,0>", "ldg", 1),
           ("eq_q28", "cascade_kernelILi10ELb0ELb0ELb0E",
-           "eq output <10,0,0,0>"),
+           "eq output <10,0,0,0>", "ldg", 1),
           ("eq_q28", "cascade_kernelILi10ELb1ELb1ELb1E",
-           "eq master lane_cf <10,1,1,1>"),
+           "eq master lane_cf <10,1,1,1>", "ldg", 1),
           ("eq_q28", "cascade_kernelILi10ELb0ELb0ELb1E",
-           "eq output lane_cf <10,0,0,1>"),
-          ("xf_q28", "xf_kernel", "xf"))
+           "eq output lane_cf <10,0,0,1>", "ldg", 1),
+          ("xf_q28", "xf_kernel", "xf", "stg", 2))
 
 
 def _stages(path):
@@ -105,22 +109,27 @@ def stage_times(eng, x, path) -> dict:
 
 def loop_ops(out: Path) -> None:
     """Print the opcode counts of each kernel's sample loop (the longest
-    backward branch's body) in the SASS of the built libraries."""
+    innermost backward branch's body) in the SASS of the built libraries,
+    and the same a sample."""
     from dspi_tpu_torch.kernels import build
 
     sass = {}
-    for lib, pattern, label in _LOOPS:
+    for lib, pattern, label, op, per in _LOOPS:
         if lib not in sass:
             sass[lib] = build.sass(lib)
             (out / f"{lib}_sass.txt").write_text(sass[lib])
         c = build.loop_counts(sass[lib], pattern)
+        ps = build.per_sample(c, op, per)
         top = sorted(c["hist"].items(), key=lambda kv: -kv[1])[:16]
         print(f"{label} SASS: sample loop 0x{c['head']:x}-0x{c['end']:x}, "
+              f"{ps['samples_per_iteration']:g} samples an iteration, "
               f"{c['instructions']} instructions, {c['imad'] + c['alu']} "
               f"per-thread arithmetic (not control, memory, uniform or "
               f"special): IMAD* {c['imad']}, integer ALU {c['alu']} "
-              f"({c['alu_only']} of them ALU-only); LDG "
-              f"{c['ldg']}, STG {c['stg']}; by opcode {top}")
+              f"({c['alu_only']} of them ALU-only); a sample "
+              f"{ps['arith']:g} arithmetic, {ps['alu_only']:g} ALU-only; "
+              f"LDG {c['ldg']}, LDS {c['lds']}, LDGSTS {c['ldgsts']}, STG "
+              f"{c['stg']}; by opcode {top}")
 
 
 def _path(path, dev):

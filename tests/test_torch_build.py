@@ -60,3 +60,96 @@ def test_loop_counts_takes_the_inner_loop_of_a_nest():
     c = build.loop_counts(NESTED, "cascade_kernel")
     assert (c["head"], c["end"]) == (0x20, 0x60)
     assert (c["imad"], c["alu"], c["ldg"], c["stg"]) == (1, 1, 1, 1)
+
+
+SHARED = """
+        Function : _Z9xf_kernelPKiS0_
+        /*0000*/                   LDGSTS.E [R5], desc[UR4][R2.64] ;
+        /*0010*/                   LDGDEPBAR ;
+        /*0020*/                   DEPBAR.LE SB0, 0x3 ;
+        /*0030*/                   LDS R8, [R5] ;
+        /*0040*/                   LDS R9, [R5+0x1000] ;
+        /*0050*/                   IMAD R10, R8, R4, RZ ;
+        /*0060*/                   IADD3 R11, R9, R10, RZ ;
+        /*0070*/                   SHF.R.S32.HI R12, RZ, 0xc, R10 ;
+        /*0080*/                   STG.E desc[UR4][R6.64], R11 ;
+        /*0090*/                   STG.E desc[UR4][R7.64], R12 ;
+        /*00a0*/                   LDS R8, [R5+0x40] ;
+        /*00b0*/                   LDS R9, [R5+0x1040] ;
+        /*00c0*/                   IMAD R10, R8, R4, RZ ;
+        /*00d0*/                   IADD3 R11, R9, R10, RZ ;
+        /*00e0*/                   SHF.R.S32.HI R12, RZ, 0xc, R10 ;
+        /*00f0*/                   STG.E desc[UR4][R6.64+0x10], R11 ;
+        /*0100*/                   STG.E desc[UR4][R7.64+0x10], R12 ;
+        /*0110*/               @P0 BRA 0x30 ;
+        /*0120*/               @P1 BRA 0x0 ;
+        /*0130*/                   EXIT ;
+"""
+
+
+def test_loop_counts_of_a_loop_that_reads_shared_memory():
+    """A sample loop fed by cp.async (LDGSTS, its commit and wait outside
+    the inner loop) and unrolled twice: no global load in it, so its
+    samples an iteration come from its stores (two a sample), and the
+    copies are memory, not arithmetic."""
+    c = build.loop_counts(SHARED, "xf_kernel")
+    assert (c["head"], c["end"]) == (0x30, 0x110)
+    assert (c["ldg"], c["lds"], c["stg"], c["ldgsts"]) == (0, 4, 4, 0)
+    assert (c["imad"], c["alu"], c["alu_only"]) == (2, 4, 2)
+    ps = build.per_sample(c, "stg", 2)
+    assert ps == {"alu_only": 1.0, "arith": 3.0, "samples_per_iteration": 2.0}
+    assert build.per_sample(c, "lds", 2) == ps
+
+
+def test_per_sample_refuses_a_loop_without_the_counting_op():
+    import pytest
+
+    c = build.loop_counts(SHARED, "xf_kernel")
+    with pytest.raises(ValueError, match="no LDG"):
+        build.per_sample(c, "ldg", 1)
+
+
+def test_loop_counts_does_not_count_copies_as_arithmetic():
+    """The outer loop's LDGSTS, LDGDEPBAR and DEPBAR are memory and
+    control: a loop of nothing else has no arithmetic."""
+    only = """
+        Function : _Z9xf_kernelPKiS0_
+        /*0000*/                   LDGSTS.E [R5], desc[UR4][R2.64] ;
+        /*0010*/                   LDGDEPBAR ;
+        /*0020*/                   DEPBAR.LE SB0, 0x3 ;
+        /*0030*/               @P1 BRA 0x0 ;
+"""
+    c = build.loop_counts(only, "xf_kernel")
+    assert (c["imad"], c["alu"], c["ldgsts"]) == (0, 0, 1)
+
+
+def test_build_all_compiles_a_source_shared_by_two_directories_once(
+        tmp_path, monkeypatch):
+    """Two source directories holding the same file (a revision that did
+    not change it) map to one library, built by one nvcc process."""
+    import subprocess
+
+    for d in ("a", "b"):
+        (tmp_path / d).mkdir()
+        (tmp_path / d / "k.cu").write_text("// same\n")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    calls = []
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **_):
+            calls.append(cmd)
+            self.out = cmd[cmd.index("-o") + 1]
+
+        def communicate(self):
+            open(self.out, "w").close()
+            return "ptxas info", None
+
+    monkeypatch.setattr(subprocess, "Popen", Proc)
+    report = build.build_all(("k",), (tmp_path / "a", tmp_path / "b"))
+    assert len(calls) == 1 and len(report) == 1
+    assert build.lib_path("k", tmp_path / "a") == \
+        build.lib_path("k", tmp_path / "b")
+    assert build.lib_path("k", tmp_path / "a").exists()

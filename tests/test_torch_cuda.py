@@ -18,9 +18,11 @@ from dspi_tpu_torch.kernels.xf_cuda import xf_q28, xf_q28_plain
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B", [(96, 197), (5, 1), (48, 64)])
+@pytest.mark.parametrize("T,B", [(96, 197), (5, 1), (48, 64), (6, 129),
+                                 (6, 257), (6, 17409)])
 def test_pdm_kernel_equals_plain(T, B):
-    """The CUDA kernel against the plain version: ragged stream counts,
+    """The CUDA kernel against the plain version: ragged stream counts
+    (129, 257, 17409: one stream or a few in the last 128-thread block),
     every machine mode, state rows word for word."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
@@ -85,8 +87,12 @@ def test_eq_q28_kernel_equals_plain(has_loud, has_env, nb, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B", [(96, 197), (1, 5), (48, 4100)])
+@pytest.mark.parametrize("T,B", [(96, 197), (1, 5), (48, 4100), (37, 197),
+                                 (16, 65), (5733, 300)])
 def test_xf_q28_kernel_equals_plain(T, B):
+    """The crossfeed kernel against the plain version, where T is a
+    multiple of its 16-sample tile or not (37, the 44.1 kHz path's 5733),
+    one tile (16) or less (1)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
     rng = np.random.default_rng(40 + B)
@@ -155,7 +161,7 @@ def test_eq_q28_kernel_modes_equal_plain(has_loud, has_env, nb, B, lane,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B", [(96, 197), (48, 4100)])
+@pytest.mark.parametrize("T,B", [(96, 197), (48, 4100), (5, 64), (49, 1)])
 def test_xf_q28_kernel_per_lane_equals_plain(T, B):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
@@ -170,3 +176,4 @@ def test_xf_q28_kernel_per_lane_equals_plain(T, B):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
