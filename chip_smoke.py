@@ -25,7 +25,8 @@ Phases (each prints one line; any failure exits non-zero):
      modes: per-lane coefficients (lane_cf) with coefficients, bypass flags
      (mixed within a warp) and alphas that differ lane by lane; a periodic
      44/45 schedule; a schedule with a 1-sample packet; lane_cf and a
-     schedule together
+     schedule together; lane_cf with columns uniform over buckets of 160
+     lanes (the HeteroServer's layout)
   5. Q28 crossfeed kernel vs its plain version, the same way, with [3] and
      per-lane [3, B] coefficients
   6. the float main path at full width: Engine on the headline RP2350
@@ -43,8 +44,9 @@ Phases (each prints one line; any failure exits non-zero):
      cascade kernel twice, the crossfeed kernel once and the PDM kernel
      once.  Then the cascade, crossfeed and PDM kernels alone, on the
      very arguments the path gave them, timed with CUDA events, beside
-     their bounds (the crossfeed's from XF_OPS and the PDM kernel's from
-     PDM_OPS, with the build's own SASS counts beside); and each of those
+     their bounds (the crossfeed's from XF_OPS, the PDM kernel's from
+     PDM_OPS and the per-lane cascade's from EQ_LANE_OPS, with the build's
+     own SASS counts beside); and each of those
      calls at its full shape held word for word against the plain version
      run on the CPU over 128 of its streams (the PDM calls in phase 12)
   9. card vs CPU on the Q28 chain at 8 streams, 16- and 24-bit: every
@@ -100,13 +102,16 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # counted in the SASS, build.loop_counts; profile_torch.py prints the same
 # counts), in SM clocks at the card's maximum SM clock, read at run time.
 # Its bound is that or the bytes' time, whichever is longer.
-# For the cascade kernel the SASS counts are read from the build being
-# measured.  For the PDM modulator and the crossfeed they are pinned, so
-# that a redesign is measured against the same work as the design before
-# it: the counts a sample of their sample loops in the SASS of commit
-# f15a17e's sources (one thread a stream, a sample an iteration; nvcc with
-# build.NVCC_FLAGS for sm_90a, read with compare_kernels.py).  The new
-# builds' own counts are printed beside them.
+# For the cascade kernel's scalar and schedule modes the SASS counts are
+# read from the build being measured.  For the PDM modulator, the
+# crossfeed and the cascade kernel's per-lane (lane_cf) instances they are
+# pinned, so that a redesign is measured against the same work as the
+# design before it: the counts a sample of their sample loops in the SASS
+# of commit f15a17e's sources (PDM, crossfeed) and of commit 84fe37b's
+# (lane_cf, keyed by (nb, loudness, envelope): the hetero path's master and
+# output instances), one thread a stream, a sample an iteration; nvcc with
+# build.NVCC_FLAGS for sm_90a, read with compare_kernels.py.  The new
+# builds' own counts, a stream-sample, are printed beside them.
 PIPE_OPS_PER_SM_CLOCK = 64
 ISSUE_PER_SM_CLOCK = 128
 # multiplies of two run-time values each function needs: fast_mul_q28 is
@@ -117,6 +122,8 @@ ISSUE_PER_SM_CLOCK = 128
 MUL_PER_BAND, MUL_PER_ENV, MUL_XF, MUL_PDM = 15, 9, 24, 0
 PDM_OPS = {"alu_only": 851.0, "arith": 1744.0}
 XF_OPS = {"alu_only": 25.5, "arith": 74.5}
+EQ_LANE_OPS = {(10, True, True): {"alu_only": 109.0, "arith": 361.0},
+               (10, False, False): {"alu_only": 74.0, "arith": 270.0}}
 
 
 def fail(msg: str) -> None:
@@ -193,7 +200,8 @@ def sm_clocks_per_s() -> float:
 
 def phase_build() -> None:
     """Build every kernel; print per source its kernel count, most
-    registers and spill bytes."""
+    registers and spill bytes, and the registers of the cascade kernel's
+    instances that the paths launch."""
     import re
 
     from dspi_tpu_torch.kernels import build
@@ -202,12 +210,21 @@ def phase_build() -> None:
     report = build.build_all()
     summary = {}
     for name, r in report.items():
-        regs = [int(v) for v in re.findall(r"Used (\d+) registers", r["log"])]
+        regs = build.registers(r["log"])
         spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill",
                                                r["log"]))
-        summary[name] = {"kernels": len(regs), "max_registers": max(regs),
+        summary[name] = {"kernels": len(regs),
+                         "max_registers": max(regs.values()),
                          "spill_bytes": spill,
                          "seconds": round(r["seconds"], 1)}
+        if name == "eq_q28":
+            # the instances the q28 and hetero paths launch
+            summary[name]["registers"] = {
+                inst: next(n for f, n in regs.items() if inst in f)
+                for inst in ("cascade_kernelILi10ELb1ELb1EE",
+                             "cascade_kernelILi10ELb0ELb0EE",
+                             "lane_kernelILi10ELb1ELb1EE",
+                             "lane_kernelILi10ELb0ELb0EE")}
     print(f"build: {time.perf_counter() - t0:.1f} s; "
           f"{summary or 'nothing (cached)'}", flush=True)
 
@@ -452,7 +469,19 @@ def phase_eq(dev) -> dict:
 # (the 44/45 cadence), SCHED1 is not and has a 1-sample packet
 SCHED, SCHED1 = (44, 45, 44, 45), (44, 1, 45, 7)
 EQ_MODES = {"lane_cf": (True, None), "sched": (False, SCHED),
-            "sched_1": (False, SCHED1), "lane_cf+sched": (True, SCHED1)}
+            "sched_1": (False, SCHED1), "lane_cf+sched": (True, SCHED1),
+            "lane_cf bucket-uniform": (True, None)}
+# bucket width of the bucket-uniform lane_cf mode: columns (coefficients,
+# flags, alphas) constant over buckets of this many lanes, as in the
+# HeteroServer's flat layout; the last bucket is ragged
+EQ_BUCKET = 160
+
+
+def _buckets(v, width: int):
+    """``v`` [..., B] with every lane set to its bucket's first lane
+    (buckets of ``width`` lanes), contiguous."""
+    idx = torch.arange(v.shape[-1], device=v.device) // width * width
+    return v.index_select(-1, idx).contiguous()
 
 
 def phase_eq_modes(dev) -> dict:
@@ -479,11 +508,16 @@ def phase_eq_modes(dev) -> dict:
             scal = torch.tensor([[g % 2, g // 2, a_rms[g],
                                   (1 << 28) - a_rms[g]] for g in range(G)],
                                 dtype=torch.int32, device=dev)
+        bucket = EQ_BUCKET if mode.endswith("bucket-uniform") else 1
+        if bucket > 1:
+            scal = _buckets(scal, bucket)
         for has_loud, has_env, nb in EQ_CASES:
             nr = (2 if has_loud else 0) + nb
             x = _rand_i32(gen, -(1 << 27), 1 << 27, (G, T, B), dev)
             cf = _rand_i32(gen, -(1 << 27), 1 << 27,
                            (G, nr, 5, B) if lane else (G, nr, 5), dev) >> 2
+            if bucket > 1:
+                cf = _buckets(cf, bucket)
             s0 = _rand_i32(gen, -(1 << 20), 1 << 20,
                            (G, 2 * nr + int(has_env), B), dev)
             kw = dict(nb=nb, has_loud=has_loud, has_env=has_env, tc=BLOCK,
@@ -507,7 +541,8 @@ def phase_eq_modes(dev) -> dict:
                          f"{mode} for loudness={has_loud} "
                          f"envelope={has_env} nb={nb}")
     print(f"eq_q28 modes: kernel == plain on {G} cascades x {B} streams in "
-          f"modes {list(EQ_MODES)} (schedules {SCHED}, {SCHED1}) for every "
+          f"modes {list(EQ_MODES)} (schedules {SCHED}, {SCHED1}; buckets "
+          f"of {EQ_BUCKET} lanes) for every "
           f"case of {list(EQ_CASES)}; plain / kernel ms, loudness + 10 bands "
           f"+ envelope: "
           f"{ {m: [round(v, 3) for v in t] for m, t in times.items()} }",
@@ -558,26 +593,39 @@ def phase_xf(dev) -> dict:
             "kernel_ms_at_plain_shape": kern_ms}
 
 
+def eq_sample_ops(nb: int, loud: bool, env: bool, lane: bool) -> dict:
+    """This build's SASS counts a stream-sample of the cascade kernel's
+    instance <nb, loud, env>: cascade_kernel, or lane_kernel per lane."""
+    kernel = "lane_kernel" if lane else "cascade_kernel"
+    return sample_ops("eq_q28", f"{kernel}ILi{nb}ELb{int(loud)}ELb{int(env)}"
+                      f"EE", "ldg", 1)
+
+
 def _eq_work(a, k) -> tuple[dict, int]:
     """(operations, bytes) of one cascade call, from its arguments and the
-    SASS of the template instance it launches.  Per-lane (lane_cf) calls
-    read their coefficient rows and scalars per stream, and a per-lane
-    bypass is a select, so no work is skipped there."""
+    SASS counts of the template instance it launches: this build's in the
+    scalar and schedule modes, the pinned EQ_LANE_OPS per lane (lane_cf).
+    Per-lane calls read their coefficient rows and scalars per stream, and
+    a per-lane bypass costs the same work, so no work is skipped there."""
     x, cf, s0, scal = a
     G, T, B = x.shape
     loud, env = bool(k.get("has_loud")), bool(k.get("has_env"))
     lane = cf.dim() == 4
     if loud and not lane and bool((scal[:, :2] != 0).any()):
         fail("a bypassed loudness filter skips work the SASS count holds")
-    inst = (f"cascade_kernelILi{k['nb']}ELb{int(loud)}ELb{int(env)}"
-            f"ELb{int(lane)}E")
+    if lane:
+        ops = EQ_LANE_OPS.get((k["nb"], loud, env))
+        if ops is None:
+            fail(f"no pinned lane_cf counts for {(k['nb'], loud, env)}")
+    else:
+        ops = eq_sample_ops(k["nb"], loud, env, False)
     mul = MUL_PER_BAND * cf.shape[1] + (MUL_PER_ENV if env else 0)
     sched = k.get("sched")
     npkt = len(sched) if sched else T // k["tc"]
     nbytes = 4 * (2 * x.numel() + (G * npkt * B if env else 0)
                   + 2 * s0.numel() + cf.numel() + scal.numel()
                   + (npkt if sched and env else 0))
-    return work(sample_ops("eq_q28", inst, "ldg", 1), mul, G * T * B), nbytes
+    return work(ops, mul, G * T * B), nbytes
 
 
 def _pdm_work(T: int, B: int) -> tuple[dict, int]:
@@ -715,10 +763,14 @@ def record_calls(eng, x, label: str,
         ms = cuda_ms(lambda: fn(*a, **k), reps=5)
         if kind == "eq":
             ops, nbytes = _eq_work(a, k)
-            extra = {"nb": k["nb"], "has_loud": k.get("has_loud", False),
-                     "has_env": k.get("has_env", False),
-                     "lane_cf": a[1].dim() == 4,
-                     "sched": bool(k.get("sched"))}
+            loud, env = k.get("has_loud", False), k.get("has_env", False)
+            lane = a[1].dim() == 4
+            extra = {"nb": k["nb"], "has_loud": loud, "has_env": env,
+                     "lane_cf": lane, "sched": bool(k.get("sched"))}
+            if lane:
+                extra["sass_per_sample"] = eq_sample_ops(k["nb"], loud, env,
+                                                         True)
+                extra["pinned"] = EQ_LANE_OPS[(k["nb"], loud, env)]
         elif kind == "xf":
             T, B = a[0].shape
             ops = work(XF_OPS, MUL_XF, T * B)
@@ -736,9 +788,9 @@ def record_calls(eng, x, label: str,
                      "bytes": nbytes, "work": text, **extra})
     pinned = {"xf": XF_OPS, "pdm": PDM_OPS}
     for r in rows:
+        pin = r.get("pinned", pinned.get(r["kind"]))
         sass = (f"; this build's SASS a sample {r['sass_per_sample']} "
-                f"(pinned {pinned[r['kind']]})" if r["kind"] in pinned
-                else "")
+                f"(pinned {pin})" if pin else "")
         print(f"  {r['kind']} {r['shape']}: kernel {r['ms']:.3f} ms, bound "
               f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['work']})"
               f"{sass}", flush=True)

@@ -6,7 +6,8 @@ in ``dspi_tpu_torch/_build/`` (git-ignored), named by a hash of the source
 and the flags, so an edited source is rebuilt and a stale library is never
 loaded.  ``build_all`` starts one nvcc per missing source, all at once.
 ``sass``, ``loop_counts`` and ``per_sample`` read a built kernel's machine
-code, so that measurements can count the instructions of its sample loop.
+code, so that measurements can count the instructions of its sample loop;
+``registers`` reads each kernel's registers from the build's ptxas report.
 
 Nothing here runs at import time: the CPU-only hosts that run the tests
 have no nvcc.
@@ -102,6 +103,20 @@ def load(name: str, src_dir: Path = SRC_DIR) -> ctypes.CDLL:
     return lib
 
 
+def registers(log: str) -> dict:
+    """{mangled kernel name: registers a thread} from a ptxas -v report."""
+    regs = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    return regs
+
+
 # SASS opcodes (before the first '.') that are not per-thread arithmetic
 _CONTROL = {"BRA", "BRX", "JMP", "CALL", "RET", "EXIT", "BSSY", "BSYNC",
             "BPT", "NOP", "WARPSYNC", "BAR", "YIELD", "DEPBAR"}
@@ -116,6 +131,11 @@ _EITHER_BASE = {"IADD3", "VIADD", "MOV"}
 _EITHER_OP = {"LEA", "SHF.L.U32"}
 _SASS_LINE = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+# an instruction's two encoding words as cuobjdump prints them; the stall
+# count ptxas scheduled after it (the clocks before the warp's next issue)
+# is bits 41-44 of the second (bits 105-108 of the 128-bit instruction)
+_SASS_WORDS = re.compile(r"/\*([0-9a-f]{4,})\*/[^;]*;\s*/\*\s*0x([0-9a-f]{16})"
+                         r"\s*\*/\s*/\*\s*0x([0-9a-f]{16})\s*\*/")
 
 
 def sass(name: str, src_dir: Path = SRC_DIR) -> str:
@@ -139,7 +159,9 @@ def loop_counts(sass_text: str, kernel: str) -> dict:
     ALU; not control, memory, uniform or special), ``alu_only`` those of
     them that no IMAD form can stand in for, ``ldg``/``stg``/``lds``/
     ``ldgsts`` the global loads and stores, shared loads and asynchronous
-    global -> shared copies, ``instructions`` all of them."""
+    global -> shared copies, ``instructions`` all of them, ``stall`` the
+    stall counts ptxas scheduled after them summed (the loop's static
+    schedule in SM clocks for one warp; None without encodings)."""
     code = sass_text[sass_text.index(kernel):]
     if "Function :" in code:
         code = code[:code.index("Function :")]
@@ -155,6 +177,8 @@ def loop_counts(sass_text: str, kernel: str) -> dict:
     for addr, op, _ in ins:
         if head <= addr <= end:
             hist[op] = hist.get(op, 0) + 1
+    stalls = [(int(hi, 16) >> 41) & 0xF for a, _, hi in
+              _SASS_WORDS.findall(code) if head <= int(a, 16) <= end]
     base = {op: op.split(".")[0] for op in hist}
     arith = sum(n for op, n in hist.items()
                 if base[op] not in _CONTROL | _MEMORY
@@ -166,7 +190,9 @@ def loop_counts(sass_text: str, kernel: str) -> dict:
             "alu_only": arith - imad - either,
             **{k.lower(): sum(n for op, n in hist.items() if base[op] == k)
                for k in ("LDG", "STG", "LDS", "LDGSTS")},
-            "instructions": sum(hist.values()), "head": head, "end": end}
+            "instructions": sum(hist.values()),
+            "stall": sum(stalls) if stalls else None, "head": head,
+            "end": end}
 
 
 def per_sample(counts: dict, op: str, per: int) -> dict:

@@ -14,18 +14,45 @@ import ctypes
 import torch
 
 from . import LAUNCHES, build
-from .eq import check_cascade_args, q28_cascades_plain
+from .eq import check_cascade_args, packet_ends, q28_cascades_plain
 
 _I32 = torch.int32
 
 
-def _lib():
-    fn = build.load("eq_q28").dspi_eq_q28
+def bind(lib: ctypes.CDLL):
+    """``lib``'s ``dspi_eq_q28`` with its C signature set."""
+    fn = lib.dspi_eq_q28
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(fn, x, cf, s0, scal, *, nb, has_loud=False, has_env=False,
+           tc=48, sched=None):
+    """One launch of ``fn``, a bound ``dspi_eq_q28`` (this repo's, or
+    another revision's for a comparison), on checked, contiguous, non-empty
+    CUDA tensors: (y, env_ends | None, s_final)."""
+    G, T, B = x.shape
+    ends = packet_ends(T, tc, sched) if has_env else ()
+    y = torch.empty_like(x)
+    env = (torch.empty((G, len(ends), B), dtype=_I32, device=x.device)
+           if has_env else None)
+    s_out = torch.empty_like(s0)
+    # a schedule's packet ends go to the kernel; uniform packets need none
+    ends_t = (torch.tensor(ends, dtype=_I32, device=x.device)
+              if has_env and sched else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), cf.data_ptr(), s0.data_ptr(), scal.data_ptr(),
+                None if ends_t is None else ends_t.data_ptr(), y.data_ptr(),
+                None if env is None else env.data_ptr(), s_out.data_ptr(), G,
+                T, B, nb, int(has_loud), int(has_env), int(cf.dim() == 4),
+                len(ends), tc, stream)
+    if rc != 0:
+        raise RuntimeError(f"cascade kernel launch failed: CUDA error {rc}")
+    return y, env, s_out
 
 
 def q28_cascades(x, cf, s0, scal, *, nb, has_loud=False, has_env=False,
@@ -45,30 +72,15 @@ def q28_cascades(x, cf, s0, scal, *, nb, has_loud=False, has_env=False,
         raise ValueError("q28_cascades wants contiguous tensors")
     if max(G * T, B) >= 2**31:
         raise ValueError(f"segment too large: {G} x {T} x {B}")
-    lane = cf.dim() == 4
-    npkt = len(ends) if has_env else 0
-    y = torch.empty_like(x)
-    env = (torch.empty((G, npkt, B), dtype=_I32, device=x.device)
-           if has_env else None)
     if G == 0 or T == 0 or B == 0:
-        return y, env, s0.clone()
-    s_out = torch.empty_like(s0)
-    # a schedule's packet ends go to the kernel; uniform packets need none
-    ends_t = (torch.tensor(ends, dtype=_I32, device=x.device)
-              if has_env and sched else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = _lib()(x.data_ptr(), cf.data_ptr(), s0.data_ptr(),
-                    scal.data_ptr(),
-                    None if ends_t is None else ends_t.data_ptr(),
-                    y.data_ptr(), None if env is None else env.data_ptr(),
-                    s_out.data_ptr(), G, T, B, nb, int(has_loud),
-                    int(has_env), int(lane), npkt, tc, stream)
-    if rc != 0:
-        raise RuntimeError(f"cascade kernel launch failed: CUDA error {rc}")
+        env = (torch.empty((G, len(ends), B), dtype=_I32, device=x.device)
+               if has_env else None)
+        return torch.empty_like(x), env, s0.clone()
+    out = launch(bind(build.load("eq_q28")), x, cf, s0, scal, nb=nb,
+                 has_loud=has_loud, has_env=has_env, tc=tc, sched=sched)
     LAUNCHES["eq_q28"] += 1
-    if lane:
+    if cf.dim() == 4:
         LAUNCHES["eq_q28_lane_cf"] += 1
     if sched:
         LAUNCHES["eq_q28_sched"] += 1
-    return y, env, s_out
+    return out

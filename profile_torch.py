@@ -42,18 +42,19 @@ SCHED441 = ((44,) * 9 + (45,)) * 13
 PATHS = ("rp2350", "rp2040", "rp2040_hetero", "rp2040_44k1")
 # (library, a piece of the kernel's mangled name, label, the memory op
 # that counts the loop's samples, its count a sample): the cascade
-# kernel's instantiations <NB, LOUD, ENV, LANE> that the paths launch (the
-# schedule mode runs the uniform instances); the crossfeed reads its
-# inputs from shared memory and stores two words a sample
+# kernel's instantiations <NB, LOUD, ENV> that the paths launch (the
+# schedule mode runs the uniform instances, the per-lane mode
+# lane_kernel); the crossfeed reads its inputs from shared memory and
+# stores two words a sample
 _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
-          ("eq_q28", "cascade_kernelILi10ELb1ELb1ELb0E",
-           "eq master <10,1,1,0>", "ldg", 1),
-          ("eq_q28", "cascade_kernelILi10ELb0ELb0ELb0E",
-           "eq output <10,0,0,0>", "ldg", 1),
-          ("eq_q28", "cascade_kernelILi10ELb1ELb1ELb1E",
-           "eq master lane_cf <10,1,1,1>", "ldg", 1),
-          ("eq_q28", "cascade_kernelILi10ELb0ELb0ELb1E",
-           "eq output lane_cf <10,0,0,1>", "ldg", 1),
+          ("eq_q28", "cascade_kernelILi10ELb1ELb1EE",
+           "eq master <10,1,1>", "ldg", 1),
+          ("eq_q28", "cascade_kernelILi10ELb0ELb0EE",
+           "eq output <10,0,0>", "ldg", 1),
+          ("eq_q28", "lane_kernelILi10ELb1ELb1EE",
+           "eq master lane_cf <10,1,1>", "ldg", 1),
+          ("eq_q28", "lane_kernelILi10ELb0ELb0EE",
+           "eq output lane_cf <10,0,0>", "ldg", 1),
           ("xf_q28", "xf_kernel", "xf", "stg", 2))
 
 
@@ -129,7 +130,8 @@ def loop_ops(out: Path) -> None:
               f"({c['alu_only']} of them ALU-only); a sample "
               f"{ps['arith']:g} arithmetic, {ps['alu_only']:g} ALU-only; "
               f"LDG {c['ldg']}, LDS {c['lds']}, LDGSTS {c['ldgsts']}, STG "
-              f"{c['stg']}; by opcode {top}")
+              f"{c['stg']}; scheduled stalls {c['stall']} clocks; by opcode "
+              f"{top}")
 
 
 def _path(path, dev):

@@ -153,3 +153,40 @@ def test_build_all_compiles_a_source_shared_by_two_directories_once(
     assert build.lib_path("k", tmp_path / "a") == \
         build.lib_path("k", tmp_path / "b")
     assert build.lib_path("k", tmp_path / "a").exists()
+
+
+def test_registers_reads_each_kernel_of_a_ptxas_report():
+    """Each entry function's registers, by its mangled name, from nvcc's
+    -Xptxas -v report (templates in an anonymous namespace included)."""
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111lane_kernelILi10ELb1ELb1EEEvPKiS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111lane_kernelILi10ELb1ELb1EEEvPKiS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 98 registers, used 0 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z14cascade_kernelILi10ELb1ELb1EEvPKi' for 'sm_90a'
+ptxas info    : Function properties for _Z14cascade_kernelILi10ELb1ELb1EEvPKi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 1 barriers, 480 bytes smem
+"""
+    assert build.registers(log) == {
+        "_ZN12_GLOBAL__N_111lane_kernelILi10ELb1ELb1EEEvPKiS2_": 98,
+        "_Z14cascade_kernelILi10ELb1ELb1EEvPKi": 120}
+
+
+def test_loop_counts_sums_the_scheduled_stalls():
+    """The stall count ptxas put in each loop instruction's control bits
+    (bits 41-44 of its second encoding word), summed over the loop."""
+    coded = """
+        Function : _Z9xf_kernelPKi
+        /*0000*/                   IMAD R1, R2, R3, RZ ;      /* 0x0000000302017224 */
+                                                              /* 0x004fca00078e02ff */
+        /*0010*/                   IADD3 R1, R1, 0x1, RZ ;    /* 0x0000000101017810 */
+                                                              /* 0x000fe20007ffe0ff */
+        /*0020*/               @P0 BRA 0x0 ;                  /* 0xfffffffc00000947 */
+                                                              /* 0x000fea000383ffff */
+        /*0030*/                   EXIT ;                     /* 0x000000000000794d */
+                                                              /* 0x000fea0003800000 */
+"""
+    c = build.loop_counts(coded, "xf_kernel")
+    assert c["stall"] == 5 + 1 + 5
+    assert build.loop_counts(SHARED, "xf_kernel")["stall"] is None

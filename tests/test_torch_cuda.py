@@ -113,16 +113,22 @@ def test_xf_q28_kernel_equals_plain(T, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lane,sched", [
     (True, None), (False, (44, 45, 44, 45)), (False, (44, 1, 45, 7)),
-    (True, (45, 44, 1))], ids=["lane_cf", "sched", "sched_1", "lane_cf+sched"])
+    (True, (45, 44, 1)), (True, (1,))],
+    ids=["lane_cf", "sched", "sched_1", "lane_cf+sched", "lane_cf+T1"])
 @pytest.mark.parametrize("has_loud,has_env,nb,B", [
     (True, True, 10, 4100), (False, False, 10, 197), (False, True, 0, 33),
-    (True, False, 2, 64)])
+    (True, False, 2, 64), (True, True, 12, 17), (False, False, 10, 23),
+    (True, False, 1, 40), (True, True, 0, 50)])
 def test_eq_q28_kernel_modes_equal_plain(has_loud, has_env, nb, B, lane,
                                          sched):
     """The cascade kernel's per-lane (lane_cf) and packet-schedule modes
     against the plain version: coefficients, bypass flags (mixed within a
     warp) and envelope alphas that differ lane by lane; a periodic 44/45
-    schedule and one with a 1-sample packet; word for word."""
+    schedule and one with a 1-sample packet; word for word.  For the
+    per-lane kernel (one warp of streams a block, its bands skewed across
+    samples): fewer streams than a warp (17) and stream counts that are no
+    multiple of 32; 14 rows (loudness + 12 bands + envelope); loudness
+    rows only (nb=0); T = 1, shorter than the skew's fill and drain."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
     G, tc = 4, 48

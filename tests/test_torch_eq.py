@@ -27,6 +27,7 @@ from jax import lax
 
 from dspi_tpu.chain.pipeline import _band_step_q28, _tdf2_q28_bypassable
 from dspi_tpu.core.qmath import q28_mul as jq28_mul
+from dspi_tpu_torch.core.qmath import q28_mul
 from dspi_tpu_torch.kernels import LAUNCHES
 from dspi_tpu_torch.kernels.eq import (band_step_q28, q28_cascades_plain,
                                        tdf2_q28_bypassable)
@@ -311,3 +312,118 @@ def test_xf_plain_per_lane_matches_jax_scan():
     for u, v in zip(same, xf_q28_plain(*map(torch.from_numpy, (
             l, r, coef[:, 0].copy(), s4)))):
         assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("sched", [None, SCHED1], ids=["uniform", "sched_1"])
+@pytest.mark.parametrize("has_loud,has_env,nb", [
+    (True, True, 4), (False, False, 3), (True, False, 2), (False, True, 0)])
+def test_bucket_uniform_lane_cf_equals_scalar_per_bucket(has_loud, has_env,
+                                                         nb, sched):
+    """Per-lane columns that are constant over each of K buckets (the
+    HeteroServer's flat layout) give, bucket by bucket, the per-cascade
+    call on that bucket's [G, rows, 5] row and [G, 4] scalars: y, envelope
+    and state word for word."""
+    G, K, W = 2, 3, 4
+    x, cf, s0, scal = _mode_inputs(47 + nb, has_loud, has_env, nb, G, K * W,
+                                   True, sched)
+    cf = np.repeat(cf[..., ::W], W, axis=-1)
+    scal = np.repeat(scal[..., ::W], W, axis=-1)
+    kw = dict(nb=nb, has_loud=has_loud, has_env=has_env, tc=TC, sched=sched)
+    lane = q28_cascades_plain(*map(torch.from_numpy, (x, cf, s0, scal)), **kw)
+    for k in range(K):
+        cut = slice(k * W, (k + 1) * W)
+        got = q28_cascades_plain(
+            *map(torch.from_numpy, (np.ascontiguousarray(x[..., cut]),
+                                    np.ascontiguousarray(cf[..., k * W]),
+                                    np.ascontiguousarray(s0[..., cut]),
+                                    np.ascontiguousarray(scal[..., k * W]))),
+            **kw)
+        for u, v in zip(lane, got):
+            if v is None:
+                assert u is None
+            else:
+                assert torch.equal(u[..., cut], v)
+
+
+def _lane_pipeline(x, cf, s0, scal, nb, has_loud, has_env, ends):
+    """csrc/eq_q28.cu's lane_kernel transcribed, all streams at once: a
+    bypassed loudness row is an identity band with zero state whose s_in
+    words are copied to s_out; the bands are skewed across samples, so in
+    step i band j runs sample i - j on band j - 1's output of step i - 1
+    and the envelope sample i - rows on the last band's; the steps before
+    every stage has a sample (fill) and after the first stages have run out
+    (drain) keep the state of a stage without a sample; an envelope is
+    stored after the step in which the envelope stage passed its packet's
+    end."""
+    G, T, B = x.shape
+    nr = (2 if has_loud else 0) + nb
+    lag_y = max(nr - 1, 0)
+    depth = nr if has_env else lag_y
+    one, zero = (torch.full((G, B), v, dtype=torch.int32) for v in (1 << 28,
+                                                                   0))
+    ident = [torch.full((G, B), False) | (
+        (scal[:, r] != 0) if has_loud and r < 2 else False)
+        for r in range(nr)]
+    c = [[torch.where(ident[r], one if k == 0 else zero, cf[:, r, k])
+          for k in range(5)] for r in range(nr)]
+    st = [[torch.where(ident[r], 0, s0[:, 2 * r + i]) for i in (0, 1)]
+          for r in range(nr)]
+    v = [zero] * nr
+    e = s0[:, -1] if has_env else None
+    y = torch.empty_like(x)
+    env = torch.empty((G, len(ends), B), dtype=torch.int32) if has_env \
+        else None
+    p = 0
+    store_at = ends[0] + nr if has_env else None
+    for i in range(T + depth):
+        xin = x[:, i] if i < T else zero
+        if has_env:
+            ne = (q28_mul(scal[:, 2], e)
+                  + q28_mul(scal[:, 3], q28_mul(*(2 * [v[-1] if nr else xin]))))
+            e = ne if 0 <= i - nr < T else e
+        for j in reversed(range(nr)):
+            out, (n1, n2) = band_step_q28(c[j], st[j], xin if j == 0 else
+                                          v[j - 1])
+            v[j] = out
+            if 0 <= i - j < T:
+                st[j] = [n1, n2]
+        if 0 <= i - lag_y < T:
+            y[:, i - lag_y] = v[-1] if nr else xin
+        if has_env and i == store_at:
+            env[:, p] = e
+            p += 1
+            store_at = ends[p] + nr if p < len(ends) else None
+    s_out = s0.clone()
+    for r in range(nr):
+        for i in (0, 1):
+            s_out[:, 2 * r + i] = torch.where(ident[r], s0[:, 2 * r + i],
+                                              st[r][i])
+    if has_env:
+        s_out[:, -1] = e
+    return y, env, s_out
+
+
+@pytest.mark.parametrize("has_loud,has_env,nb,sched", [
+    (True, True, 10, None), (False, False, 10, None), (True, True, 12, SCHED1),
+    (True, False, 1, None), (True, True, 0, (1,)), (False, True, 3, (1, 1, 5)),
+    (False, False, 0, (3,)), (True, True, 10, (1, 2)), (False, True, 0, None)])
+def test_lane_pipeline_transcription_equals_plain(has_loud, has_env, nb,
+                                                  sched):
+    """The per-lane kernel's skewed schedule, transcribed (_lane_pipeline),
+    against the plain version word for word: per-lane bypass flags, T
+    shorter than the pipeline's depth (T=1, T=3 with 12 rows), 1-sample
+    packets, packets that end in the fill or the drain, no bands."""
+    G, B = 2, 6
+    x, cf, s0, scal = _mode_inputs(61 + nb, has_loud, has_env, nb, G, B,
+                                   True, sched)
+    T = x.shape[1]
+    ends = tuple(np.cumsum(sched or (TC,) * (T // TC)) - 1)
+    args = tuple(map(torch.from_numpy, (x, cf, s0, scal)))
+    want = q28_cascades_plain(*args, nb=nb, has_loud=has_loud,
+                              has_env=has_env, tc=TC, sched=sched)
+    got = _lane_pipeline(*args, nb, has_loud, has_env, ends)
+    for u, v in zip(got, want):
+        if v is None:
+            assert u is None
+        else:
+            assert torch.equal(u, v)
