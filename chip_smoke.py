@@ -37,7 +37,8 @@ Phases (each prints one line; any failure exits non-zero):
      on the path's own arguments beside its bound and held against the
      plain version in phase 12
   7. card vs CPU on the float chain at 8 streams: out/s24 <= 1e-6 relative
-     RMS, PDM words equal up to the first differing modulator input
+     RMS, peaks within 1 LSB, PDM words equal up to the first differing
+     modulator input
   8. the Q28 main path at full width: Engine on the RP2040 headline chain
      (full_chain_config, 7 channels), the same geometry, 16- and 24-bit
      input, 4 chained segments each; fails unless a segment launches the
@@ -63,14 +64,34 @@ Phases (each prints one line; any failure exits non-zero):
  11. card vs CPU on both: a HeteroServer of 3 configs over 24 scattered
      streams, 2 segments with an update_group between; a 44.1 kHz Engine
      at 8 streams, 2 segments; every output word and every state word equal
- 12. the PDM kernel's calls at full length (the two timed in phase 3 and
-     the one of each path in phases 6, 8 and 10) against the plain
+ 12. the float chain's serving paths at full width, each as phase 6
+     (warm-up, 4 chained segments, exactly 1 PDM launch a segment, the PDM
+     call of one more segment timed alone beside its bound): the float
+     chain with the device wire words (examples/serve.py's engine:
+     wire=True, emit "reduced"), with the wire stage's synchronized time
+     beside the segment's and a fused encoder's byte bound; the float
+     chain at 44.1 kHz (130 packets on the 44/45 cadence, 5733 samples),
+     with the LTI block size chosen; a HeteroServer over 8 RP2350 configs
+     of one structure over 16384 scattered streams (one flat lane axis,
+     per-group block matrices), with its padding waste.  Each prints its
+     setup time
+ 13. card vs CPU on this slice's paths: the float wire engine (8 streams, 2
+     segments; its words equal to the port's encoder run on the CPU over
+     the card's own s24), the Q28 wire engine (every word equal), the
+     float 44.1 kHz engine (8 streams, 2 segments), a float HeteroServer
+     (3 configs over 24 scattered streams, an update_group between 2
+     segments) and the float engine at 24-bit input: out/s24 <= 1e-6
+     relative RMS, PDM words equal up to the first differing modulator
+     input
+ 14. the PDM kernel's calls at full length (the two timed in phase 3 and
+     the one of each path in phases 6, 8, 10 and 12) against the plain
      version on the CPU over the first and the last 64 lanes of each, all
      lanes of one segment length in one plain call (its time goes by
      samples, not lanes): every word and state word equal
- 13. one JSON line {"kernels": [...]} for every kernel of the port and each
-     mode of the cascade kernel
- 14. last line: {"ok": true, "device": {...}}
+ 15. one JSON line {"kernels": [...]} for every kernel of the port and each
+     mode of the cascade kernel, with every path's segment time, RTF and
+     peak memory
+ 16. last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports nothing of JAX or of the JAX package.
@@ -359,11 +380,45 @@ def phase_main(dev, card: str) -> dict:
     return result
 
 
+def float_close(label: str, gpu: dict, cpu: dict) -> tuple[float, int]:
+    """The float budgets, card against CPU: out/s24 <= 1e-6 relative RMS,
+    peaks within 1 LSB, PDM words equal for each stream up to its first
+    differing modulator input (emit='full' outputs: out [Npkt, nout, T,
+    B] or time-flat [nout, Ttot, B]).  Returns (the worst relative RMS,
+    the sample-streams of PDM words compared)."""
+    from dspi_tpu_torch.core.qmath import f32_to_i32
+
+    worst = 0.0
+    for k in ("out", "s24"):
+        err = rel_rms(gpu[k].cpu().numpy(), cpu[k].numpy())
+        worst = max(worst, err)
+        if err > 1e-6:
+            fail(f"{label}: {k} relative RMS {err:.3e} > 1e-6")
+    if (gpu["peaks"].cpu() - cpu["peaks"]).abs().max() > 1:
+        fail(f"{label}: peaks differ by more than 1 LSB")
+    compared = 0
+    if "pdm" in cpu:
+        subs = []
+        for o in (gpu, cpu):
+            out = o["out"].cpu()
+            sub = out[-1] if out.dim() == 3 else out[:, -1].reshape(
+                -1, out.shape[-1])
+            subs.append(f32_to_i32(sub * float(1 << 28)) >> 14)
+        for s_ in range(subs[0].shape[1]):
+            diff = (subs[0][:, s_] != subs[1][:, s_]).nonzero()
+            k = int(diff[0, 0]) if len(diff) else subs[0].shape[0]
+            if not torch.equal(gpu["pdm"][:k, :, s_].cpu(),
+                               cpu["pdm"][:k, :, s_]):
+                fail(f"{label}: PDM words differ in stream {s_} before the "
+                     f"modulator inputs do (sample {k})")
+            compared += k
+    return worst, compared
+
+
 def phase_card_vs_cpu(dev) -> None:
     from dspi_tpu_torch import Platform
     from dspi_tpu_torch.chain import Engine
     from dspi_tpu_torch.configs import full_chain_config
-    from dspi_tpu_torch.core.qmath import f32_to_i32
 
     B, npkt, nseg = 8, 8, 2
     rng = np.random.default_rng(3)
@@ -375,33 +430,122 @@ def phase_card_vs_cpu(dev) -> None:
     for seg in range(nseg):
         x = rng.integers(-16000, 16000, size=(npkt, 2, BLOCK, B)).astype(
             np.int32)
-        gpu, cpu = ({k: v.cpu() for k, v in e.process(x).items()}
-                    for e in engs)
+        gpu, cpu = (e.process(x) for e in engs)
         ref = cpu["out"].double()
         if seg == nseg - 1 and ref.pow(2).mean().sqrt() < 1e-4:
             fail("card vs CPU: reference signal is silent")
-        for k in ("out", "s24"):
-            err = rel_rms(gpu[k].numpy(), cpu[k].numpy())
-            worst = max(worst, err)
-            if err > 1e-6:
-                fail(f"card vs CPU: {k} relative RMS {err:.3e} > 1e-6")
-        if (gpu["peaks"] - cpu["peaks"]).abs().max() > 1:
-            fail("card vs CPU: peaks differ by more than 1 LSB")
-        subs = [f32_to_i32(o["out"][:, -1].reshape(-1, B) * float(1 << 28))
-                >> 14 for o in (gpu, cpu)]
-        for s in range(B):
-            diff = (subs[0][:, s] != subs[1][:, s]).nonzero()
-            k = int(diff[0, 0]) if len(diff) else subs[0].shape[0]
-            if not torch.equal(gpu["pdm"][:k, :, s], cpu["pdm"][:k, :, s]):
-                fail(f"card vs CPU: PDM words differ in stream {s} before "
-                     f"the modulator inputs do (sample {k})")
-            compared += k
+        w, n = float_close(f"card vs CPU, segment {seg}", gpu, cpu)
+        worst, compared = max(worst, w), compared + n
     if (engs[0].state.clip_flags.cpu() != engs[1].state.clip_flags).any():
         fail("card vs CPU: clip flags differ")
     print(f"card vs CPU: {B} streams x {nseg} segments of {npkt}x{BLOCK}: "
           f"out/s24 worst relative RMS {worst:.3e} (<= 1e-6); PDM words "
           f"equal over {compared} sample-streams before any modulator "
           f"input differs", flush=True)
+
+
+def phase_float_paths_card_vs_cpu(dev) -> None:
+    """This slice's paths on the card and on the CPU: the float chain with
+    wire words (8 streams, 2 segments; its words equal to the port's
+    encoder run on the CPU over the card's own s24), the Q28 chain with
+    wire words (every output word equal), the float chain at 44.1 kHz (8
+    streams, 2 segments), a float HeteroServer (3 configs over 24
+    scattered streams, 2 segments with an update_group between) and the
+    float chain at 24-bit input; float budgets as float_close."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, HeteroServer
+    from dspi_tpu_torch.configs import full_chain_config, hetero_variants
+    from dspi_tpu_torch.kernels import encoders
+
+    rng = np.random.default_rng(61)
+    t0 = time.perf_counter()
+    B, npkt = 8, 8
+    cfg = full_chain_config(Platform.RP2350, RATE)
+    cfg.hardware.output_types = [0, 1, 0, 0]
+    engs = [Engine(cfg, n_streams=B, block_size=BLOCK, emit="full",
+                   wire=True, device=d) for d in (dev, "cpu")]
+    worst, pos = 0.0, 0
+    for seg in range(2):
+        x = rng.integers(-16000, 16000, size=(npkt, 2, BLOCK, B)).astype(
+            np.int32)
+        gpu, cpu = (e.process(x) for e in engs)
+        worst = max(worst, float_close(f"float wire card vs CPU ({seg})",
+                                       gpu, cpu)[0])
+        s24 = gpu["s24"].cpu()
+        flat = [s24[:, ch].reshape(-1, B) for ch in range(8)]
+        for pair, typ in enumerate(engs[0].static.wire):
+            lr = flat[2 * pair], flat[2 * pair + 1]
+            want = (torch.stack([encoders.encode_i2s(v) for v in lr], dim=1)
+                    if typ == 1 else encoders.encode_spdif_block(
+                        *lr, pos, int(RATE)))
+            if not torch.equal(gpu[f"wire{pair}"].cpu(), want):
+                fail(f"float wire card vs CPU: the card's wire{pair} words "
+                     f"!= the encoder on its s24 (segment {seg})")
+        pos = (pos + npkt * BLOCK) % 192
+    if int(engs[0].state.wire_pos) != pos:
+        fail("float wire card vs CPU: wire position")
+    text = [f"float wire {worst:.3e}"]
+
+    qcfg = full_chain_config(Platform.RP2040, RATE)
+    qcfg.hardware.output_types = [0, 1]
+    engs = [Engine(qcfg, n_streams=B, block_size=BLOCK, emit="full",
+                   pdm=False, wire=True, device=d) for d in (dev, "cpu")]
+    for seg in range(2):
+        x = rng.integers(-16000, 16000, size=(npkt, 2, BLOCK, B)).astype(
+            np.int32)
+        gpu, cpu = (e.process(x) for e in engs)
+        _same_words(f"Q28 wire card vs CPU (segment {seg})", gpu, cpu)
+    if not cpu["s24"].ne(0).any():
+        fail("Q28 wire card vs CPU: silent s24")
+    _same_state("Q28 wire card vs CPU", engs[0].state, engs[1].state)
+
+    sched = (44,) * 9 + (45,)
+    engs = [Engine(full_chain_config(Platform.RP2350, 44100.0), n_streams=B,
+                   schedule=sched, emit="full", device=d)
+            for d in (dev, "cpu")]
+    worst = 0.0
+    for seg in range(2):
+        x = rng.integers(-16000, 16000, size=(2, sum(sched), B)).astype(
+            np.int32)
+        gpu, cpu = (e.process(x) for e in engs)
+        worst = max(worst, float_close(f"float 44.1 kHz card vs CPU ({seg})",
+                                       gpu, cpu)[0])
+    text.append(f"float 44.1 kHz {worst:.3e}")
+
+    cfgs = hetero_variants(3, Platform.RP2350)
+    ids = rng.integers(0, 3, 24)
+    srvs = [HeteroServer(cfgs, ids, block_size=BLOCK, emit="full", device=d)
+            for d in (dev, "cpu")]
+    quiet = hetero_variants(3, Platform.RP2350)[1]
+    quiet.master_volume_db = -30.0
+    worst = 0.0
+    for seg in range(2):
+        if seg:
+            for srv in srvs:
+                srv.update_group(1, quiet)
+        x = rng.integers(-16000, 16000, size=(npkt, 2, BLOCK, 24)).astype(
+            np.int32)
+        gpu, cpu = (srv.process(x) for srv in srvs)
+        worst = max(worst, float_close(f"float hetero card vs CPU ({seg})",
+                                       gpu, cpu)[0])
+    text.append(f"float hetero {worst:.3e}")
+
+    engs = [Engine(full_chain_config(Platform.RP2350, RATE), n_streams=B,
+                   block_size=BLOCK, bit_depth=24, emit="full", pdm=False,
+                   device=d) for d in (dev, "cpu")]
+    worst = 0.0
+    for seg in range(2):
+        x = rng.integers(-(1 << 22), 1 << 22,
+                         size=(npkt, 2, BLOCK, B)).astype(np.int32)
+        gpu, cpu = (e.process(x) for e in engs)
+        worst = max(worst, float_close(f"float 24-bit card vs CPU ({seg})",
+                                       gpu, cpu)[0])
+    text.append(f"float 24-bit {worst:.3e}")
+    print(f"float paths card vs CPU ({time.perf_counter() - t0:.1f} s): "
+          f"out/s24 worst relative RMS {', '.join(text)} (<= 1e-6), PDM "
+          f"words equal up to the first differing modulator input, the "
+          f"float wire words equal to the encoder on the card's s24; Q28 "
+          f"wire: every output and state word equal", flush=True)
 
 
 # (has_loud, has_env, nb) of the cascade kernel's checks; the last two are
@@ -675,60 +819,62 @@ def bound(ops: dict, nbytes) -> tuple[float, str, str]:
 
 
 def drive_path(dev, card: str, label: str, eng, x, audio_s: float,
-               want: dict, n_peaks: int, peak_max: int = 0xFFFF) -> dict:
-    """A main path at full width: one warm-up segment, then SEGMENTS
+               want: dict, n_peaks: int, peak_max: int = 0xFFFF,
+               keys: tuple = ("peaks", "s24_sum", "pdm_sum"),
+               segments: int = SEGMENTS) -> dict:
+    """A main path at full width: one warm-up segment, then ``segments``
     chained segments with a fresh input each (x ^ i), launch counts set to
     0 just before and read just after.  Fails unless the launches are
-    exactly ``want`` per segment and the outputs are sane (``n_peaks``
-    channels of peaks in 0..``peak_max``, sums not all zero, float state
-    finite).  ``audio_s``: the audio-seconds one segment carries (the RTF
-    counts real streams)."""
+    exactly ``want`` per segment and the outputs are sane (exactly
+    ``keys``, ``n_peaks`` channels of peaks in 0..``peak_max``, sums not
+    all zero, float state finite).  ``audio_s``: the audio-seconds one
+    segment carries (the RTF counts real streams)."""
     from dspi_tpu_torch.kernels import LAUNCHES
 
-    eng.process(x ^ SEGMENTS)                      # warm-up segment
+    eng.process(x ^ segments)                      # warm-up segment
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     for k in list(LAUNCHES):
         LAUNCHES[k] = 0
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(SEGMENTS + 1)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(segments + 1)]
     outs = []
     h0 = time.perf_counter()
     ev[0].record()
-    for i in range(SEGMENTS):
+    for i in range(segments):
         outs.append(eng.process(x ^ i))
         ev[i + 1].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - h0
     launches = {k: n for k, n in LAUNCHES.items() if n}
 
-    want = {k: n * SEGMENTS for k, n in want.items()}
+    want = {k: n * segments for k, n in want.items()}
     if launches != want:
-        fail(f"{label} launched {launches} in {SEGMENTS} segments, not "
+        fail(f"{label} launched {launches} in {segments} segments, not "
              f"{want}")
     B = x.shape[-1]
     for i, out in enumerate(outs):
-        if set(out) != {"peaks", "s24_sum", "pdm_sum"}:
+        if set(out) != set(keys):
             fail(f"{label} segment {i}: outputs {sorted(out)}")
         if out["peaks"].shape != (n_peaks, B) or not (
                 (out["peaks"] >= 0) & (out["peaks"] <= peak_max)).all():
             fail(f"{label} segment {i}: peaks out of range")
-        if not out["pdm_sum"].ne(0).any() or not out["s24_sum"].ne(0).any():
+        if not all(out[k].ne(0).any() for k in keys if k != "peaks"):
             fail(f"{label} segment {i}: silent outputs")
     for f, v in zip(eng.state._fields, eng.state):
         if v is not None and v.is_floating_point() and \
                 not torch.isfinite(v).all():
             fail(f"{label}: state {f} not finite")
-    seg_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(SEGMENTS)]
-    mean_ms = sum(seg_ms) / SEGMENTS
+    seg_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(segments)]
+    mean_ms = sum(seg_ms) / segments
     rtf = audio_s / (mean_ms / 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{label}: per segment {[round(m, 3) for m in seg_ms]} ms (CUDA "
           f"events), mean {mean_ms:.3f} ms, host wall "
           f"{1e3 * wall / SEGMENTS:.3f} ms; RTF {rtf:.1f}x; peak memory "
           f"{peak_gb:.2f} GB; launches {launches}; card {card}", flush=True)
-    return {"launches": launches, "seg_ms": seg_ms, "mean_ms": mean_ms,
-            "rtf": rtf, "peak_gb": peak_gb}
+    return {"launches": launches, "segments": segments, "seg_ms": seg_ms,
+            "mean_ms": mean_ms, "rtf": rtf, "peak_gb": peak_gb}
 
 
 def record_calls(eng, x, label: str,
@@ -895,6 +1041,130 @@ def phase_44k1(dev, card: str) -> dict:
     result["calls"] = record_calls(eng, x, "Q28 44.1 kHz path")
     if not all(c["sched"] for c in result["calls"] if c["kind"] == "eq"):
         fail("Q28 44.1 kHz path: a cascade call ran without the schedule")
+    return result
+
+
+def wire_stage_time(eng, x) -> dict:
+    """One more segment with the wire stage (pipeline._wire_stage)
+    synchronized before and after: its host-clock ms beside the segment's
+    (synchronized around), and the byte bound of a fused encoder that
+    reads the s24 samples once and writes one fold a pair."""
+    from dspi_tpu_torch.chain import pipeline
+
+    saved = pipeline._wire_stage
+    took = {}
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = saved(*a, **k)
+        torch.cuda.synchronize()
+        took["ms"] = 1e3 * (time.perf_counter() - t0)
+        return r
+
+    pipeline._wire_stage = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.process(x ^ (SEGMENTS + 2))
+        torch.cuda.synchronize()
+        seg_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        pipeline._wire_stage = saved
+    n_ch = 2 * len(eng.static.wire)
+    fused_bytes = 4 * n_ch * x[:, 0].numel()
+    return {"wire_ms": took["ms"], "wire_segment_ms": seg_ms,
+            "wire_share": took["ms"] / seg_ms,
+            "fused_wire_bound_ms": 1e3 * fused_bytes / HBM_BYTES_PER_S}
+
+
+def phase_float_wire(dev, card: str) -> dict:
+    """The float chain with the device-side wire words at full width:
+    examples/serve.py's engine (wire=True, emit 'reduced')."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+
+    t0 = time.perf_counter()
+    eng = Engine(full_chain_config(Platform.RP2350, RATE), n_streams=STREAMS,
+                 block_size=BLOCK, emit="reduced", pdm=True, pdm_fade=False,
+                 wire=True, device=dev)
+    print(f"float wire path: {STREAMS} streams x {PACKETS}x{BLOCK} samples, "
+          f"slots {eng.static.wire}, {SEGMENTS} chained segments; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
+    result = drive_path(dev, card, "float wire path", eng, x,
+                        STREAMS * PACKETS * BLOCK / RATE, {"pdm": 1}, 11,
+                        peak_max=32767,
+                        keys=("peaks", "s24_sum", "pdm_sum", "wire_sum"))
+    result["calls"] = record_calls(eng, x, "float wire path", kinds=("pdm",))
+    result.update(wire_stage_time(eng, x))
+    print(f"  wire stage (synchronized): {result['wire_ms']:.3f} ms of a "
+          f"{result['wire_segment_ms']:.3f} ms segment "
+          f"({100 * result['wire_share']:.1f}%); a fused encoder's byte "
+          f"bound {result['fused_wire_bound_ms']:.3f} ms; card {card}",
+          flush=True)
+    return result
+
+
+def phase_float_44k1(dev, card: str) -> dict:
+    """The float chain at 44.1 kHz at full width: the headline RP2350 chain
+    on the 44/45 cadence, 130 packets (5733 samples)."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, mxu
+    from dspi_tpu_torch.configs import full_chain_config
+
+    t0 = time.perf_counter()
+    eng = Engine(full_chain_config(Platform.RP2350, 44100.0),
+                 n_streams=STREAMS, schedule=SCHED441, emit="reduced",
+                 pdm=True, pdm_fade=False, device=dev)
+    ttot = sum(SCHED441)
+    lay = mxu.sched_layout(eng.static, len(SCHED441), lti=True)
+    print(f"float 44.1 kHz path: {STREAMS} streams x {len(SCHED441)} packets "
+          f"({ttot} samples), LTI block size {lay.tmax} "
+          f"({len(lay.sched)} blocks, uniform {lay.uniform}), {SEGMENTS} "
+          f"chained segments; setup {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(53)
+    x = _rand_i32(gen, -16000, 16000, (2, ttot, STREAMS), dev)
+    result = drive_path(dev, card, "float 44.1 kHz path", eng, x,
+                        STREAMS * ttot / 44100.0, {"pdm": 1}, 11,
+                        peak_max=32767)
+    result.update(lti_block=lay.tmax,
+                  calls=record_calls(eng, x, "float 44.1 kHz path",
+                                     kinds=("pdm",)))
+    return result
+
+
+def phase_float_hetero(dev, card: str) -> dict:
+    """Grouped serving of float configs at full width: HeteroServer over 8
+    RP2350 configs of one structure scattered over 16384 streams, the Q28
+    hetero path's mix on the float chain."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import HeteroServer
+    from dspi_tpu_torch.configs import hetero_variants
+
+    t0 = time.perf_counter()
+    ids = np.random.default_rng(5).integers(0, HETERO_CONFIGS, STREAMS)
+    srv = HeteroServer(hetero_variants(HETERO_CONFIGS, Platform.RP2350), ids,
+                       block_size=BLOCK, emit="reduced", pdm=True,
+                       pdm_fade=False, device=dev)
+    lanes = srv.grouped.n_groups * srv.grouped.streams_per_group
+    print(f"float hetero path: {HETERO_CONFIGS} configs over {STREAMS} "
+          f"streams ({lanes} lanes, padding waste {srv.padding_waste:.4f}, "
+          f"layout {srv.grouped.layout}) x {PACKETS}x{BLOCK} samples, "
+          f"{SEGMENTS} chained segments; setup (block matrices of "
+          f"{HETERO_CONFIGS} groups on the CPU) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(59)
+    x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
+    result = drive_path(dev, card, "float hetero path", srv, x,
+                        STREAMS * PACKETS * BLOCK / RATE, {"pdm": 1}, 11,
+                        peak_max=32767)
+    result.update(padding_waste=srv.padding_waste, lanes=lanes,
+                  calls=record_calls(srv, x, "float hetero path",
+                                     kinds=("pdm",)))
     return result
 
 
@@ -1079,15 +1349,22 @@ def main() -> None:
     hetero = phase_hetero(dev, card)
     s441 = phase_44k1(dev, card)
     phase_new_paths_card_vs_cpu(dev)
+    f_wire = phase_float_wire(dev, card)
+    f_441 = phase_float_44k1(dev, card)
+    f_het = phase_float_hetero(dev, card)
+    phase_float_paths_card_vs_cpu(dev)
     pdm_row.update(phase_pdm_plain())
 
-    # launches: each path's counted run (4 segments each; the Q28 chain at
-    # 16-bit and at 24-bit)
+    # launches: each path's counted run (SEGMENTS segments each; the Q28
+    # chain at 16-bit and at 24-bit)
     paths = {"rp2350_float": main_path["launches"],
              "rp2040_q28_16bit": q28["launches"],
              "rp2040_q28_24bit": q28_24["launches"],
              "rp2040_q28_hetero": hetero["launches"],
-             "rp2040_q28_44k1": s441["launches"]}
+             "rp2040_q28_44k1": s441["launches"],
+             "rp2350_float_wire": f_wire["launches"],
+             "rp2350_float_44k1": f_441["launches"],
+             "rp2350_float_hetero": f_het["launches"]}
     # the cascade kernel's scalar-coefficient, uniform-packet mode: its
     # launches less the other modes' (no path combines lane_cf and a
     # schedule)
@@ -1125,7 +1402,20 @@ def main() -> None:
         p: next(c for c in r["calls"] if c["kind"] == "pdm")
         for p, r in (("rp2350_float", main_path), ("rp2040_q28_16bit", q28),
                      ("rp2040_q28_hetero", hetero),
-                     ("rp2040_q28_44k1", s441))}
+                     ("rp2040_q28_44k1", s441),
+                     ("rp2350_float_wire", f_wire),
+                     ("rp2350_float_44k1", f_441),
+                     ("rp2350_float_hetero", f_het))}
+    pdm_row["paths"] = {
+        p: {k: r[k] for k in ("mean_ms", "rtf", "peak_gb", "segments")}
+        for p, r in (("rp2350_float", main_path), ("rp2040_q28_16bit", q28),
+                     ("rp2040_q28_24bit", q28_24),
+                     ("rp2040_q28_hetero", hetero), ("rp2040_q28_44k1", s441),
+                     ("rp2350_float_wire", f_wire),
+                     ("rp2350_float_44k1", f_441),
+                     ("rp2350_float_hetero", f_het))}
+    pdm_row["wire_stage"] = {k: f_wire[k] for k in (
+        "wire_ms", "wire_segment_ms", "wire_share", "fused_wire_bound_ms")}
     xf_row.update(ms=xf_call["ms"], bound_ms=xf_call["bound_ms"],
                   bound_by=xf_call["bound_by"], shape=xf_call["shape"],
                   hetero_call=next(c for c in hetero["calls"]

@@ -2,11 +2,12 @@
 
 ``Engine`` runs B parallel streams of one device config on one card.  It
 mirrors the JAX package's ``Engine`` (chain/__init__.py) for the RP2350
-float chain at 48 and 96 kHz on the block-matmul lowering and for the
-RP2040 Q28 chain at 44.1 (the 44/45 packet schedule), 48 and 96 kHz, with
-per-stream parameters on the Q28 chain.  ``GroupedEngine`` and
-``HeteroServer`` (chain/grouped.py) serve several Q28 configs at once.
-Everything else is refused with NotImplementedError naming its ROADMAP.md
+float chain on the block-matmul lowering and for the RP2040 Q28 chain, at
+44.1 (the 44/45 packet schedule), 48 and 96 kHz, with the device-side wire
+words (``wire=True``) on both and per-stream parameters on the Q28 chain.
+``GroupedEngine`` and ``HeteroServer`` (chain/grouped.py) serve several
+configs of either chain at once.  The float chain's scan lowering
+(``mxu=False``) is refused with NotImplementedError naming its ROADMAP.md
 item.
 """
 
@@ -67,8 +68,10 @@ class Engine:
         when no CUDA device is present.  ``schedule``: per-packet sample
         counts (44.1 kHz delivers 44/45-sample packets); ``process`` then
         takes x as [2, sum(schedule), B] and emit='full' outputs are
-        time-flat.  Refused (not ported yet): ``wire=True`` and, on the
-        float chain, ``schedule`` and ``mxu=False``."""
+        time-flat.  ``wire``: emit the wire-format word streams on the
+        device — S/PDIF subframe words or I2S words per the config's
+        output slot types, 'wire{pair}' (emit='full') or 'wire_sum'
+        (emit='reduced').  Refused (not ported yet): ``mxu=False``."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_streams = n_streams
@@ -139,6 +142,8 @@ class Engine:
             schedule at 44.1 kHz, as many packets as before); callers
             re-frame their segments; filter state persists
           * ``bit_depth`` (16|24, None = keep) changes only the unpack
+          * an S/PDIF <-> I2S output slot switch resets the wire block
+            position
           * a sub-output enable flip sets ``pdm_ena``: the modulator fades
             out, stops, restarts (pdm_generator.c:217-252); the stage is
             kept across a runtime disable so the fade-out runs
@@ -156,7 +161,7 @@ class Engine:
                        else int(bit_depth)), emit=old_static.emit,
             pdm=old_static.pdm_on or cfg.outputs[-1].enabled,
             schedule=schedule, mxu=old_static.mxu,
-            pdm_keep=old_static.pdm_on)
+            wire=bool(old_static.wire), pdm_keep=old_static.pdm_on)
         refuse(new_static)
         self.cfg, self.derived = cfg, new_d
         self._rate = float(cfg.sample_rate)
@@ -192,6 +197,11 @@ class Engine:
             st = self._reset_leveller(st)
         if preset_load and st.delay is not None:
             st = st._replace(delay=torch.zeros_like(st.delay))
+        # an S/PDIF <-> I2S slot type switch tears down and restarts the
+        # instances, resetting the IEC 60958 block position
+        # (process_type_switches, main.c:230-423)
+        if old_static.wire and self.static.wire != old_static.wire:
+            st = st._replace(wire_pos=torch.zeros_like(st.wire_pos))
         new_pdm_out = bool(cfg.outputs[-1].enabled)
         if (self.static.pdm_on and st.pdm_ena is not None
                 and new_pdm_out != self._pdm_out_on):

@@ -1,24 +1,31 @@
-"""Grouped heterogeneous serving of Q28 configs: K configs x G streams in
-one segment call.
+"""Grouped heterogeneous serving: K configs x G streams in one segment
+call.
 
-The JAX package's ``chain/grouped.py`` for RP2040 (Q28) configs.  The port
-lowers every grouped engine flat: the K groups' streams form one K*G-wide
-lane axis (group blocks contiguous), the coefficients become per-lane
-leaves (``build_params_multi``), and one ``process_q28`` call runs all
-lanes, its two cascade calls in the kernel's per-lane (``lane_cf``) mode.
-The JAX package's flat and vmapped Q28 lowerings are the same program
-(tests/test_grouped.py holds them word-equal), and on the TPU both reach
-``lane_cf``.  Per-stream delays, which the JAX package's ``layout="auto"``
-sends to its vmapped layout, stay flat here and read the delay ring
-through a per-lane gather.
+The JAX package's ``chain/grouped.py``.  All configs must share static
+structure (band kinds, enables, dynamics toggles: everything
+``build_static`` compiles in); coefficient-level differences (frequencies,
+gains, volumes, delays, routing weights) are free.
 
-All configs must share static structure (band kinds, enables, dynamics
-toggles: everything ``build_static`` compiles in); coefficient-level
-differences (frequencies, gains, volumes, delays, routing weights) are
-free.
+The port runs every grouped engine on one flat lane axis: the K groups'
+streams form K*G lanes (group blocks contiguous), the leaves that differ
+across groups become per-lane leaves (``pack.lane_params``), and one
+segment call runs all lanes, with one PDM launch a segment.  The JAX
+package's two layouts differ in how its state and params are laid out,
+and ``layout`` names the one an engine exchanges with it
+(``load_numpy``/``to_numpy``):
 
-Refused, naming ROADMAP.md item 11b: float (RP2350) configs and
-``layout="vmap"``, whose grouped serving needs per-group block matrices.
+  * ``"flat"`` (the default for Q28 configs): per-lane params and [.., K*G]
+    state, the JAX package's flat layout.  The Q28 chain's two cascade
+    calls run in the kernel's per-lane (``lane_cf``) mode.  Per-stream
+    delays, which the JAX package's ``layout="auto"`` sends to its vmapped
+    layout, stay flat here and read the delay ring through a per-lane
+    gather; so do wire words in reduced emit, folded group by group.
+  * ``"vmap"`` (the default for float configs, whose block matrices are
+    per group): [K, ...] params and [K, ..., G] state, the JAX package's
+    vmapped layout.  On the float chain every block product applies
+    group k's matrices to group k's lanes (``mxu.stack_groups``); every
+    elementwise stage runs over all lanes with per-lane leaves.  The flat
+    per-lane float layout needs the scan lowering (ROADMAP.md item 7).
 """
 
 from __future__ import annotations
@@ -30,13 +37,19 @@ import torch
 
 from ..core import constants as C
 from ..params.design import derive
-from .pack import (build_params_multi, build_static, init_state,
-                   resolve_device, to_device)
-from .pipeline import process_q28, refuse
+from . import mxu
+from .pack import (ChainParams, ChainState, _NDIM, build_params,
+                   build_static, from_numpy, init_state, lane_params,
+                   resolve_device, to_device, to_numpy)
+from .pipeline import process_float, process_q28, refuse
 
-_NOT_PORTED = ("grouped and hetero serving of float (RP2350) configs and "
-               "layout='vmap' (per-group block matrices) are not ported yet: "
-               "ROADMAP.md section 1, item 11b")
+
+def _regroup(key, v, K, G):
+    """A flat output [..., K*G] -> [K, ..., G]; 'wire_sum' [npairs, K]
+    (reduced wire folds, per group) -> [K, npairs]."""
+    if key == "wire_sum":
+        return v.movedim(-1, 0)
+    return v.reshape(*v.shape[:-1], K, G).movedim(-2, 0)
 
 
 class GroupedEngine:
@@ -51,12 +64,10 @@ class GroupedEngine:
                  pdm_fade: bool = True, pdm_seed=C.PDM_RNG_SEED,
                  schedule=None, wire: bool = False, layout: str = "auto",
                  device=None):
-        """``layout``: "auto" or "flat" (the same here); "vmap" is
-        refused.  ``device``: None means "cuda", and raises when no CUDA
-        device is present."""
-        if layout == "vmap":
-            raise NotImplementedError(_NOT_PORTED)
-        if layout not in ("auto", "flat"):
+        """``layout``: "auto", "flat" or "vmap" (module docstring); "auto"
+        is "vmap" for float configs and "flat" for Q28 ones.  ``device``:
+        None means "cuda", and raises when no CUDA device is present."""
+        if layout not in ("auto", "flat", "vmap"):
             raise ValueError(f"unknown layout {layout!r}")
         self.device = resolve_device(device)
         self.cfgs = list(cfgs)
@@ -73,26 +84,51 @@ class GroupedEngine:
                 "enables, dynamics toggles); use one Engine per structure "
                 "or build_params_multi for per-stream coefficients")
         self.static = statics[0]
-        if self.static.is_float:
-            raise NotImplementedError(_NOT_PORTED)
         refuse(self.static)
-        self.layout = "flat"
-        self.params = self._flat_params()
+        if layout == "auto":
+            layout = "vmap" if self.static.is_float else "flat"
+        if self.static.is_float and layout == "flat":
+            raise NotImplementedError(
+                "the flat per-lane layout of float configs needs the scan "
+                "lowering, which is not ported yet: ROADMAP.md section 1, "
+                "item 7")
+        self.layout = layout
+        self.blocks = None
+        self._group_params = [build_params(d, self.static)
+                              for d in self.deriveds]
+        self._set_params()
         # uniform per-stream fills, so init_state(K*G) is leaf for leaf the
         # lane-axis concatenation of K per-group init_state(G)s
         self.state = to_device(
             init_state(self.static, self.n_groups * streams_per_group,
                        pdm_seed=pdm_seed, pdm_fade=pdm_fade), self.device)
 
-    def _flat_params(self):
+    def _set_params(self, k=None) -> None:
+        """The lane params from the per-group NumPy trees, and on the float
+        chain the grouped block matrices: all groups', or group ``k``'s
+        only."""
         ids = np.repeat(np.arange(self.n_groups), self.streams_per_group)
-        return to_device(build_params_multi(self.deriveds, self.static, ids),
-                         self.device)
+        self.params = to_device(lane_params(self._group_params, ids),
+                                self.device)
+        if not self.static.is_float:
+            return
+        if k is None:
+            per = [mxu.build_blocks(self.static, gp, self.device)
+                   for gp in self._group_params]
+            self._mix = [b.mix for b in per]
+            self.blocks = mxu.stack_groups(self.static, per)
+        else:
+            new = mxu.build_blocks(self.static, self._group_params[k],
+                                   self.device)
+            self._mix[k] = new.mix
+            self.blocks = mxu.set_group(self.static, self.blocks, k, new,
+                                        self._mix)
 
     def update_group(self, k: int, cfg) -> None:
         """Swap group ``k``'s coefficients (the new config must keep the
-        shared static structure).  Leaves that stay config-uniform keep
-        their collapsed homogeneous shape."""
+        shared static structure): its params, and on the float chain its
+        block matrices only.  Leaves that stay config-uniform keep their
+        collapsed homogeneous shape."""
         d = derive(cfg)
         s = build_static(d, block_size=self.static.block_size,
                          bit_depth=self.static.bit_depth,
@@ -103,8 +139,74 @@ class GroupedEngine:
             raise ValueError("new config changes the static structure")
         self.cfgs[k] = cfg
         self.deriveds[k] = d
-        self.params = self._flat_params()
+        self._group_params[k] = build_params(d, self.static)
+        self._set_params(k)
 
+    # -- the JAX package's layouts ------------------------------------------
+    def load_numpy(self, params, state) -> None:
+        """Take the params and state of the JAX package's GroupedEngine of
+        this ``layout`` (NumPy trees, ``np.asarray`` of its leaves):
+        "vmap" [K, ...] params and [K, ..., G] state (group k's block
+        matrices are built from its params), "flat" per-lane params
+        (Q28) and [..., K*G] state."""
+        K = self.n_groups
+        fields = {}
+        for f in ChainState._fields:
+            v = getattr(state, f)
+            if v is None or self.layout == "flat":
+                fields[f] = v
+            elif f == "wire_pos":
+                pos = np.asarray(v)
+                if (pos != pos.flat[0]).any():
+                    raise ValueError(f"the groups' wire positions differ: "
+                                     f"{pos.tolist()}")
+                fields[f] = pos.flat[0]
+            else:
+                v = np.moveaxis(np.asarray(v), 0, -2)
+                fields[f] = v.reshape(*v.shape[:-2], -1)
+        if self.layout == "flat":
+            self.params, self.state = from_numpy(params, ChainState(**fields),
+                                                 self.device)
+            return
+        group_params = []
+        for k in range(K):
+            tree = ChainParams(*[None if getattr(params, f) is None
+                                 else np.asarray(getattr(params, f))[k]
+                                 for f in ChainParams._fields])
+            if any(getattr(tree, f) is not None
+                   and np.ndim(getattr(tree, f)) != n
+                   for f, n in _NDIM.items()):
+                raise ValueError("vmap-layout params: every group's tree "
+                                 "must be homogeneous ([K, ...] leaves)")
+            group_params.append(tree)
+        self._group_params = group_params
+        self._set_params()
+        self.state = to_device(ChainState(**fields), self.device)
+
+    def to_numpy(self):
+        """(params, state) as NumPy trees in the JAX package's layout of
+        this ``layout`` (``load_numpy``'s inverse)."""
+        st = to_numpy(self.state)
+        if self.layout == "flat":
+            return to_numpy(self.params), st
+        K = self.n_groups
+        params = ChainParams(*[
+            None if getattr(self._group_params[0], f) is None
+            else np.stack([np.asarray(getattr(gp, f))
+                           for gp in self._group_params])
+            for f in ChainParams._fields])
+        fields = {}
+        for f, v in zip(st._fields, st):
+            if v is None:
+                fields[f] = None
+            elif f == "wire_pos":
+                fields[f] = np.full(K, v, v.dtype)
+            else:
+                fields[f] = np.moveaxis(v.reshape(*v.shape[:-1], K, -1),
+                                        -2, 0)
+        return params, ChainState(**fields)
+
+    # -- running ----------------------------------------------------------
     def process(self, x, preset_mute=None):
         """x: int32 [K, n_packets, 2, block, G] (scheduled chains:
         [K, 2, sum(schedule), G]) -> output dict with a leading group
@@ -127,16 +229,21 @@ class GroupedEngine:
         def fn(params, state, x, pm):
             xf = x.movedim(0, -2).reshape(*x.shape[1:-1], K * G)
             state, out = raw(params, state, xf, pm)
-            return state, {k: v.reshape(*v.shape[:-1], K, G).movedim(-2, 0)
-                           for k, v in out.items()}
+            return state, {k: _regroup(k, v, K, G) for k, v in out.items()}
 
         return fn
 
     @property
     def flat_segment_fn(self):
-        """The flat segment processor: x [..., K*G] with group lane-blocks
-        contiguous, flat outputs (the engine's native layout)."""
-        return functools.partial(process_q28, self.static)
+        """The flat segment processor for the CURRENT params: x [..., K*G]
+        with group lane-blocks contiguous, flat outputs (the engine's
+        native layout; reduced wire folds [npairs, K])."""
+        if self.static.is_float:
+            return functools.partial(process_float, self.static,
+                                     blocks=self.blocks,
+                                     groups=self.n_groups)
+        return functools.partial(process_q28, self.static,
+                                 groups=self.n_groups)
 
 
 class HeteroServer:
@@ -226,7 +333,10 @@ class HeteroServer:
 
         def fn(params, state, x, pm):
             state, out = raw(params, state, x.index_select(-1, perm), pm)
-            return state, {k: v.index_select(-1, inv) for k, v in out.items()}
+            # reduced wire folds stay per bucket: [K, npairs]
+            return state, {k: v.movedim(-1, 0) if k == "wire_sum"
+                           else v.index_select(-1, inv)
+                           for k, v in out.items()}
 
         return fn
 

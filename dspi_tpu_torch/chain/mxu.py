@@ -15,8 +15,19 @@ construction.  It is then applied per packet with the input part hoisted
 into batched products over the whole segment, and only the [S, B] state
 carried through a loop over packets.
 
-This is the JAX package's ``chain/mxu.py`` for uniform packets.  Two
-differences of form, not of function:
+This is the JAX package's ``chain/mxu.py``.  Variable-packet schedules
+(the 44.1 kHz 44/45 cadence) run as there: the LTI passes re-block the
+flat segment uniformly where its length allows (``_lti_block``), else one
+matrix is built per distinct packet size, embedded into the largest
+packet's padded frame (padded inputs are masked to zero, so they neither
+produce output nor advance the state), and applied per packet: shared
+matrices per pattern position for a periodic schedule, one a packet for
+an aperiodic one.  The leveller envelope keeps the real packet grid.
+Grouped serving (chain/grouped.py) applies per-group matrices, [K, ...]
+after any schedule axis, to the lanes of K contiguous groups of one flat
+lane axis: only the products view the lanes as [..., K, G].
+
+Two differences of form, not of function:
 
   * The block matrices are built once per parameter set (``build_blocks``,
     at Engine construction and ``update_config``), on the CPU in float32,
@@ -36,13 +47,15 @@ sets both; each product checks them first.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import constants as C
-from .pipeline import (_band_step_f32, _gather_states, _scatter_states,
-                       _svf_general_f32)
+from .pipeline import (_band_step_f32, _gather_states, _pattern_len,
+                       _pkts_to_flat, _scatter_states, _svf_general_f32)
 
 _F32 = torch.float32
 
@@ -65,7 +78,10 @@ def _check_fp32():
 class Split(NamedTuple):
     """A block matrix [[Tx, U], [V, W]] cut at the input/state boundary:
     Tx [.., Ry, Cx] input->output, U [.., Ry, S] state->output,
-    V [.., S, Cx] input->state, W [.., S, S] state->state."""
+    V [.., S, Cx] input->state, W [.., S, S] state->state.  The leading
+    axes are, in order: the schedule's (a pattern position, or a packet;
+    none for uniform packets), the group's (grouped serving) and the
+    batched outputs' (per-output EQ)."""
 
     Tx: torch.Tensor
     U: torch.Tensor
@@ -74,11 +90,12 @@ class Split(NamedTuple):
 
 
 class Blocks(NamedTuple):
-    """The block matrices of one parameter set (``build_blocks``)."""
+    """The block matrices of one parameter set (``build_blocks``), or of
+    K groups' (``stack_groups``)."""
 
     a: tuple            # (left, right): Split | None per master channel
     xf: Split | None    # crossfeed, 2-in 2-out
-    out: Split | None   # per-output EQ cascades, batched [G, ...]
+    out: Split | None   # per-output EQ cascades, batched [Go, ...]
     mix: tuple          # per output: (left gain != 0, right gain != 0)
 
 
@@ -87,6 +104,125 @@ def _split(M, Ry, S, device):
     return Split(*(t.contiguous().to(device) for t in (
         M[..., :Ry, :Cx], M[..., :Ry, Cx:], M[..., Ry:, :Cx],
         M[..., Ry:, Cx:])))
+
+
+# ----------------------------------------------------------------------------
+# packet layouts
+# ----------------------------------------------------------------------------
+
+
+class Layout(NamedTuple):
+    """Static packet geometry of a segment (NumPy)."""
+
+    sched: np.ndarray       # [Npkt] per-packet sample counts
+    tmax: int
+    uniform: bool
+    pad_idx: np.ndarray     # [Npkt, Tmax] flat gather indices (padded view)
+    pad_mask: np.ndarray    # [Npkt, Tmax] True on real samples
+    period: int | None      # repeating-pattern length (None: aperiodic)
+    key: tuple              # the arguments of ``_layout`` that made it
+
+
+def _lti_block(ttot: int) -> int | None:
+    """The smallest divisor of ``ttot`` in [32, 192], else the largest in
+    [24, 32), else None: the block size that the LTI passes of a scheduled
+    chain re-block the flat segment to.  The JAX package's rule, kept as
+    it is because the block size sets the products' rounding (its choice
+    was tuned on a TPU v5e; re-tuning it for the card is open)."""
+    for t in range(32, 193):
+        if ttot % t == 0:
+            return t
+    for t in range(31, 23, -1):
+        if ttot % t == 0:
+            return t
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(schedule: tuple, block_size: int, n_packets: int,
+            lti: bool) -> Layout:
+    if schedule:
+        sched = np.asarray(schedule, np.int64)
+        if lti and not bool((sched == sched.max()).all()):
+            T = _lti_block(int(sched.sum()))
+            if T:
+                sched = np.full(int(sched.sum()) // T, T, np.int64)
+    else:
+        sched = np.full(n_packets, block_size, np.int64)
+    Tmax = int(sched.max())
+    starts = np.concatenate([[0], np.cumsum(sched)[:-1]])
+    pad_idx = np.minimum(starts[:, None] + np.arange(Tmax)[None, :],
+                         int(sched.sum()) - 1)
+    pad_mask = np.arange(Tmax)[None, :] < sched[:, None]
+    return Layout(sched, Tmax, bool((sched == Tmax).all()), pad_idx,
+                  pad_mask, _pattern_len(sched),
+                  (schedule, block_size, n_packets, lti))
+
+
+def sched_layout(static, n_packets: int, lti: bool = False) -> Layout:
+    """The packet layout of a segment of ``n_packets`` packets (a
+    scheduled chain's own).  ``lti=True``: the layout of a pass that is
+    linear and time-invariant over the whole segment, which may re-block
+    the flat stream uniformly (``_lti_block``): only the leveller's
+    packet-rate gain staircase and envelope reads depend on the firmware's
+    44/45-sample packet boundaries (leveller.c:147-262)."""
+    return _layout(tuple(static.schedule), static.block_size,
+                   len(static.schedule) or n_packets, lti)
+
+
+@functools.lru_cache(maxsize=None)
+def _pad_index(lay_key, device):
+    lay = _layout(*lay_key)
+    return (torch.from_numpy(lay.pad_idx.reshape(-1)).to(device),
+            torch.from_numpy(lay.pad_mask[:, :, None].astype(np.float32))
+            .to(device))
+
+
+def _to_packets(x_flat, lay: Layout):
+    """[Ttot, B] -> [Npkt, Tmax, B]; padded samples zero."""
+    if lay.uniform:
+        return x_flat.reshape(len(lay.sched), lay.tmax, x_flat.shape[-1])
+    idx, mask = _pad_index(lay.key, x_flat.device)
+    return x_flat.index_select(0, idx).reshape(
+        len(lay.sched), lay.tmax, x_flat.shape[-1]) * mask
+
+
+def _to_flat(y_pkts, lay: Layout):
+    """[Npkt, Tmax, B] -> [Ttot, B], dropping padded rows."""
+    return _pkts_to_flat(y_pkts, lay.sched, int(lay.sched.sum()))
+
+
+def _embed(M_s, s: int, S: int, Tmax: int, n_io: int):
+    """Embed a size-s block matrix [.., n_io*s+S, n_io*s+S] into the padded
+    Tmax frame (layout [io0(T); io1(T); ...; states]); padded sample rows
+    and columns are zero."""
+    if s == Tmax:
+        return M_s
+    R = n_io * Tmax + S
+    out = M_s.new_zeros(M_s.shape[:-2] + (R, R))
+    for bi in range(n_io):
+        for bj in range(n_io):
+            out[..., bi * Tmax:bi * Tmax + s, bj * Tmax:bj * Tmax + s] = \
+                M_s[..., bi * s:(bi + 1) * s, bj * s:(bj + 1) * s]
+        out[..., bi * Tmax:bi * Tmax + s, n_io * Tmax:] = \
+            M_s[..., bi * s:(bi + 1) * s, n_io * s:]
+        out[..., n_io * Tmax:, bi * Tmax:bi * Tmax + s] = \
+            M_s[..., n_io * s:, bi * s:(bi + 1) * s]
+    out[..., n_io * Tmax:, n_io * Tmax:] = M_s[..., n_io * s:, n_io * s:]
+    return out
+
+
+def _build_seq(build_for_size, lay: Layout, S: int, n_io: int):
+    """One padded matrix per distinct packet size: a single matrix
+    (uniform), one per pattern position ([p, ...], periodic) or one a
+    packet ([Npkt, ...], aperiodic).  ``build_for_size(s)`` gives the
+    size-s matrix [.., n_io*s+S, n_io*s+S]."""
+    if lay.uniform:
+        return build_for_size(lay.tmax)
+    mats = {s: _embed(build_for_size(s), s, S, lay.tmax, n_io)
+            for s in sorted({int(v) for v in lay.sched})}
+    seq = lay.sched[:lay.period] if lay.period else lay.sched
+    return torch.stack([mats[int(s)] for s in seq])
 
 
 def _linearize(step, T: int, n_in: int, S: int):
@@ -111,20 +247,49 @@ def _linearize(step, T: int, n_in: int, S: int):
     return torch.stack(ys), s
 
 
-def _apply_blocked(M: Split, x_pkts, s0):
+def _to_groups(v, groups: int, axis: int):
+    """[..., K*G] -> the K axis moved to ``axis``, the lanes [G] last."""
+    return v.reshape(*v.shape[:-1], groups, -1).movedim(-2, axis)
+
+
+def _from_groups(v, axis: int):
+    """Inverse of ``_to_groups``."""
+    v = v.movedim(axis, -2)
+    return v.reshape(*v.shape[:-2], -1)
+
+
+def _apply_blocked(M: Split, lay: Layout, x_pkts, s0, groups=None):
     """Apply a block matrix per packet with the input part hoisted.
 
-    x_pkts [Npkt, Cx, B] (or [Npkt, G, Cx, B] with a batched M [G, ...]);
-    s0 [S, B] (or [G, S, B]).  The input responses run as two batched
-    products over the whole segment; the loop over packets carries only
-    the state.  Returns (sF, y [Npkt, (G,) Ry, B])."""
+    x_pkts [Npkt, (Go,) Cx, B]; s0 [(Go,) S, B]; M's tensors carry the
+    leading axes ``Split`` names.  With ``groups`` = K, M carries a group
+    axis and lane b belongs to group b // (B / K).  The input responses
+    run as two batched products over the whole segment; the loop over
+    packets carries only the state.  Returns (sF, y [Npkt, (Go,) Ry, B])."""
     _check_fp32()
-    y = torch.matmul(M.Tx, x_pkts)
-    vx = torch.matmul(M.V, x_pkts)
+    N = x_pkts.shape[0]
+    if groups:
+        x_pkts = _to_groups(x_pkts, groups, 1)
+        s0 = _to_groups(s0, groups, 0)
+    p = None if lay.uniform else lay.period
+    if p:                             # the pattern positions' own matrices
+        xg = x_pkts.reshape(N // p, p, *x_pkts.shape[1:])
+        y = torch.matmul(M.Tx, xg).flatten(0, 1)
+        vx = torch.matmul(M.V, xg).flatten(0, 1)
+    else:                             # one shared matrix, or one a packet
+        y = torch.matmul(M.Tx, x_pkts)
+        vx = torch.matmul(M.V, x_pkts)
     s = s0
-    for k in range(x_pkts.shape[0]):
-        y[k] += torch.matmul(M.U, s)
-        s = vx[k] + torch.matmul(M.W, s)
+    for k in range(N):
+        if lay.uniform:
+            U, W = M.U, M.W
+        else:
+            j = k % p if p else k
+            U, W = M.U[j], M.W[j]
+        y[k] += torch.matmul(U, s)
+        s = vx[k] + torch.matmul(W, s)
+    if groups:
+        return _from_groups(s, 0), _from_groups(y, 1)
     return s, y
 
 
@@ -180,11 +345,13 @@ def _a_state_set(static, st, ch, ch_bands, vec):
     return _scatter_states(st, ch_bands, finals) if ch_bands else st
 
 
-def chain_a(static, p, blocks: Blocks, st, bl, br, master_bands, Npkt):
+def chain_a(static, p, blocks: Blocks, st, bl, br, master_bands, Npkt,
+            groups=None):
     """Loudness + master EQ on both channels as per-packet products.
 
-    bl/br: [Ttot, B] post-preamp samples.  Returns (st', bl', br')."""
-    T = static.block_size
+    bl/br: [Ttot, B] post-preamp samples; ``groups``: K with per-group
+    blocks.  Returns (st', bl', br')."""
+    lay = sched_layout(static, Npkt, lti=True)
     outs = [bl, br]
     for ch in (0, 1):
         M = blocks.a[ch]
@@ -192,9 +359,9 @@ def chain_a(static, p, blocks: Blocks, st, bl, br, master_bands, Npkt):
             continue
         ch_bands = [t for t in master_bands if t[0] == ch]
         s0 = _a_state_get(static, st, ch, ch_bands)
-        x = outs[ch].reshape(Npkt, T, -1)
-        sF, y = _apply_blocked(M, x, s0)
-        outs[ch] = y.reshape(Npkt * T, -1)
+        sF, y = _apply_blocked(M, lay, _to_packets(outs[ch], lay), s0,
+                               groups)
+        outs[ch] = _to_flat(y, lay)
         st = _a_state_set(static, st, ch, ch_bands, sF)
     return st, outs[0], outs[1]
 
@@ -207,27 +374,47 @@ def chain_a(static, p, blocks: Blocks, st, bl, br, master_bands, Npkt):
 def env_packet_ends(static, p, st, bl, br, Npkt):
     """Packet-end RMS envelopes (leveller.c:150-156) as weighted block sums.
 
-    env_t = a*env_{t-1} + (1-a)*y_t^2 unrolled over one packet of T
-    samples: env_end = a^T * env_start + sum_j a^(T-1-j)*(1-a)*y_j^2, with
-    the firmware's denormal flush at every packet boundary.
+    env_t = a*env_{t-1} + (1-a)*y_t^2 unrolled over one packet of T_k
+    samples: env_end = a^T_k * env_start + sum_j a^(T_k-1-j)*(1-a)*y_j^2,
+    with the firmware's denormal flush at every packet boundary.  A
+    scheduled chain keeps its real packet grid (padded samples weigh 0);
+    a per-lane alpha ([B], grouped serving) weighs each lane with its own.
     Returns (env_l, env_r) [Npkt, B]."""
     _check_fp32()
-    T = static.block_size
+    lay = sched_layout(static, Npkt)
+    sched, Tmax = lay.sched, lay.tmax
     a = p.lev[0]
-    pw = torch.cumprod(a.expand(T), dim=0)                   # a^1..a^T
-    w = torch.cat([pw[:T - 1].flip(0),
-                   torch.ones((1,), dtype=_F32, device=pw.device)]) \
-        * (1.0 - a)
-    y2l = bl.reshape(Npkt, T, -1)
-    y2r = br.reshape(Npkt, T, -1)
-    cl = torch.matmul(w, y2l * y2l)                          # [Npkt, B]
-    cr = torch.matmul(w, y2r * y2r)
-    aT = pw[T - 1]
+    pw = torch.cumprod(a.expand(Tmax, *a.shape), dim=0)      # a^1..a^Tmax
+    one = torch.ones_like(pw[:1])
+
+    def w_for(n):                        # packet of n samples, [Tmax(, B)]
+        w = torch.cat([pw[:n - 1].flip(0), one]) * (1.0 - a)
+        return torch.cat([w, torch.zeros_like(pw[:Tmax - n])])
+
+    if lay.uniform:
+        w = w_for(Tmax)
+        y2l, y2r = (v.reshape(Npkt, Tmax, -1) for v in (bl, br))
+        aT = pw[Tmax - 1].expand(Npkt, *a.shape)
+    else:
+        sizes = sorted({int(n) for n in sched})
+        which = torch.from_numpy(np.searchsorted(sizes, sched)).to(a.device)
+        w = torch.stack([w_for(n) for n in sizes]).index_select(0, which)
+        y2l, y2r = (_to_packets(v, lay) for v in (bl, br))
+        aT = pw.index_select(0, torch.from_numpy(sched - 1).to(a.device))
+    if a.dim():                          # per-lane weights
+        cl = (w * (y2l * y2l)).sum(dim=1)
+        cr = (w * (y2r * y2r)).sum(dim=1)
+    elif lay.uniform:
+        cl = torch.matmul(w, y2l * y2l)                      # [Npkt, B]
+        cr = torch.matmul(w, y2r * y2r)
+    else:
+        cl = torch.matmul(w[:, None], y2l * y2l)[:, 0]
+        cr = torch.matmul(w[:, None], y2r * y2r)[:, 0]
     el, er = st.lev_env[0], st.lev_env[1]
     out_l, out_r = [], []
     for k in range(Npkt):
-        el = aT * el + cl[k]
-        er = aT * er + cr[k]
+        el = aT[k] * el + cl[k]
+        er = aT[k] * er + cr[k]
         el = torch.where(el < 1e-30, torch.zeros_like(el), el)
         er = torch.where(er < 1e-30, torch.zeros_like(er), er)
         out_l.append(el)
@@ -286,7 +473,8 @@ def _out_groups(out_bands):
     return live, per_o, s_max
 
 
-def chain_b(static, p, blocks: Blocks, st, bl, br, out_bands, Npkt):
+def chain_b(static, p, blocks: Blocks, st, bl, br, out_bands, Npkt,
+            groups=None):
     """Crossfeed + matrix + per-output EQ.
 
     The crossfeed runs as its own [2T+4]^2 stereo block product, the
@@ -294,24 +482,23 @@ def chain_b(static, p, blocks: Blocks, st, bl, br, out_bands, Npkt):
     cascades run as one batched product over the live outputs.
     Returns (st', bufs): nout [Ttot, B] tensors."""
     nout = static.n_outputs
-    T = static.block_size
-    Ttot = Npkt * T
-    B = bl.shape[-1]
+    lay = sched_layout(static, Npkt, lti=True)
+    Tmax = lay.tmax
 
     if blocks.xf is not None:
         s0 = torch.stack([st.xf_lp[0], st.xf_lp[1], st.xf_ap[0],
                           st.xf_ap[1]])
-        x2 = torch.cat([bl.reshape(Npkt, T, B), br.reshape(Npkt, T, B)],
-                       dim=1)
-        sF, y = _apply_blocked(blocks.xf, x2, s0)
+        x2 = torch.cat([_to_packets(bl, lay), _to_packets(br, lay)], dim=1)
+        sF, y = _apply_blocked(blocks.xf, lay, x2, s0, groups)
         del x2
         st = st._replace(xf_lp=sF[0:2].clone(), xf_ap=sF[2:4].clone())
-        bl = y[:, :T].reshape(Ttot, B)
-        br = y[:, T:].reshape(Ttot, B)
+        bl = _to_flat(y[:, :Tmax], lay)
+        br = _to_flat(y[:, Tmax:], lay)
         del y
 
     # matrix mix (usb_audio.c:751-779): which gains are nonzero is part of
-    # the parameter set (Blocks.mix), the gains themselves stay on device
+    # the parameter set (Blocks.mix; with groups, nonzero in any group: a
+    # zero gain then adds a zero product), the gains stay on the device
     bufs = []
     for o in range(nout):
         use_l, use_r = blocks.mix[o]
@@ -335,35 +522,39 @@ def chain_b(static, p, blocks: Blocks, st, bl, br, out_bands, Npkt):
                     for r in pair]
             rows += [torch.zeros_like(rows[0])] * (s_max - len(rows))
             s_rows.append(torch.stack(rows))
-        s0 = torch.stack(s_rows)                          # [G, S_max, B]
-        x_g = torch.stack([bufs[o].reshape(Npkt, T, B) for o in live],
-                          dim=1)                          # [Npkt, G, T, B]
-        sF, y = _apply_blocked(blocks.out, x_g, s0)
+        s0 = torch.stack(s_rows)                          # [Go, S_max, B]
+        x_g = torch.stack([_to_packets(bufs[o], lay) for o in live],
+                          dim=1)                          # [Npkt, Go, T, B]
+        sF, y = _apply_blocked(blocks.out, lay, x_g, s0, groups)
         del x_g
         bands, finals = [], []
         for gi, o in enumerate(live):
             for j, t in enumerate(per_o[o]):
                 bands.append(t)
                 finals.append((sF[gi, 2 * j], sF[gi, 2 * j + 1]))
-            bufs[o] = y[:, gi].reshape(Ttot, B)
+            bufs[o] = _to_flat(y[:, gi], lay)
         del y
         st = _scatter_states(st, bands, finals)
     return st, bufs
 
 
 # ----------------------------------------------------------------------------
-# the block matrices of one parameter set
+# the block matrices of one parameter set, and of K groups
 # ----------------------------------------------------------------------------
 
 
 def build_blocks(static, p, device) -> Blocks:
     """Every block matrix the chain applies, built on the CPU in float32
-    from the parameter set ``p`` and moved to ``device``."""
+    from the (homogeneous) parameter set ``p`` and moved to ``device``;
+    for a scheduled chain, one per distinct block size of its LTI layout
+    (``sched_layout(lti=True)``)."""
     from .pipeline import _chain_structure
 
     require_fp32()
-    p = type(p)(*[None if v is None else v.detach().cpu() for v in p])
-    T = static.block_size
+    p = type(p)(*[None if v is None
+                  else v.detach().cpu() if isinstance(v, torch.Tensor)
+                  else torch.from_numpy(np.array(v)) for v in p])
+    lay = sched_layout(static, 1, lti=True)
     master_bands, out_bands = _chain_structure(static)
 
     a = []
@@ -373,26 +564,80 @@ def build_blocks(static, p, device) -> Blocks:
         if S == 0:
             a.append(None)
             continue
-        Y, sF = _linearize(step, T, 1, S)
-        a.append(_split(torch.cat([Y, sF]), T, S, device))
+
+        def build(n, step=step, S=S):
+            Y, sF = _linearize(step, n, 1, S)
+            return torch.cat([Y, sF])
+        a.append(_split(_build_seq(build, lay, S, 1), lay.tmax, S, device))
 
     xf = None
     if static.crossfeed_on:
-        Y, sF = _linearize(_make_xf_step(p), T, 2, 4)        # Y [T, 2, C]
-        M = torch.cat([Y.movedim(1, 0).reshape(2 * T, 2 * T + 4), sF])
-        xf = _split(M, 2 * T, 4, device)
+        def build_xf(n):
+            Y, sF = _linearize(_make_xf_step(p), n, 2, 4)     # Y [n, 2, C]
+            return torch.cat([Y.movedim(1, 0).reshape(2 * n, 2 * n + 4), sF])
+        xf = _split(_build_seq(build_xf, lay, 4, 2), 2 * lay.tmax, 4, device)
 
     out = None
     if out_bands:
         live, per_o, s_max = _out_groups(out_bands)
-        Ms = []
-        for o in live:
-            step = _make_out_step(p, per_o[o], s_max - 2 * len(per_o[o]))
-            Y, sF = _linearize(step, T, 1, s_max)
-            Ms.append(torch.cat([Y, sF]))
-        out = _split(torch.stack(Ms), T, s_max, device)
+
+        def build_out(n):
+            Ms = []
+            for o in live:
+                step = _make_out_step(p, per_o[o],
+                                      s_max - 2 * len(per_o[o]))
+                Y, sF = _linearize(step, n, 1, s_max)
+                Ms.append(torch.cat([Y, sF]))
+            return torch.stack(Ms)                        # [Go, n+S, n+S]
+        out = _split(_build_seq(build_out, lay, s_max, 1), lay.tmax, s_max,
+                     device)
 
     mg = p.matrix_gain
     mix = tuple((bool(mg[0, o] != 0.0), bool(mg[1, o] != 0.0))
                 for o in range(static.n_outputs))
     return Blocks(tuple(a), xf, out, mix)
+
+
+def _group_axis(static) -> int:
+    """Where the group axis sits in a grouped Split's tensors: after the
+    schedule's axis, which uniform layouts do not have."""
+    return 0 if sched_layout(static, 1, lti=True).uniform else 1
+
+
+def _mix_any(per_group) -> tuple:
+    return tuple((any(m[o][0] for m in per_group),
+                  any(m[o][1] for m in per_group))
+                 for o in range(len(per_group[0])))
+
+
+def stack_groups(static, per_group: list) -> Blocks:
+    """K groups' ``build_blocks`` as one grouped Blocks: each tensor gains
+    the group axis (``_group_axis``)."""
+    ax = _group_axis(static)
+
+    def stack(*ms):
+        if ms[0] is None:
+            return None
+        return Split(*(torch.stack(ts, dim=ax) for ts in zip(*ms)))
+
+    first = per_group[0]
+    return Blocks(tuple(stack(*(b.a[ch] for b in per_group))
+                        for ch in (0, 1)),
+                  stack(*(b.xf for b in per_group)),
+                  stack(*(b.out for b in per_group)),
+                  (_mix_any([b.mix for b in per_group]) if len(per_group) > 1
+                   else first.mix))
+
+
+def set_group(static, blocks: Blocks, k: int, new: Blocks,
+              group_mix: list) -> Blocks:
+    """Write group ``k``'s matrices ``new`` into grouped ``blocks`` in
+    place; ``group_mix``: every group's ``mix``, group k's new one
+    included.  Returns the Blocks with the mix flags of all groups."""
+    ax = _group_axis(static)
+    for dst, src in ((blocks.a[0], new.a[0]), (blocks.a[1], new.a[1]),
+                     (blocks.xf, new.xf), (blocks.out, new.out)):
+        if dst is not None:
+            for d, s_ in zip(dst, src):
+                d.select(ax, k).copy_(s_)
+    return blocks._replace(mix=_mix_any(group_mix))

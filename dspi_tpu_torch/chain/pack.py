@@ -166,6 +166,7 @@ class ChainState(NamedTuple):
     pdm_fout: Any             # [B] i32 fade_out_pos
     pdm_base: Any             # [B] i32 fade_base_pcm
     clip_flags: Any           # [B] i32 sticky bitmask
+    wire_pos: Any             # scalar i32: IEC 60958 frame position (0-191)
 
 
 def build_static(d: DerivedParams, block_size: int, bit_depth: int = 16,
@@ -370,6 +371,7 @@ def init_state(static: StaticChain, n_streams: int,
         pdm_ena=np.ones(B, np.int32), pdm_run=np.ones(B, np.int32),
         pdm_fout=zi(B), pdm_base=zi(B),
         clip_flags=zi(B),
+        wire_pos=np.int32(0),
     )
 
 
@@ -401,7 +403,14 @@ def build_params_multi(deriveds: list, static: StaticChain,
             raise ValueError(
                 "heterogeneous configs must share static structure; "
                 f"mismatch for config with bands {s.band_kinds}")
-    per = [build_params(d, static) for d in deriveds]
+    return lane_params([build_params(d, static) for d in deriveds],
+                       stream_config_ids)
+
+
+def lane_params(per: list, stream_config_ids=None) -> ChainParams:
+    """Stack the NumPy param trees ``per`` (one a config) on a trailing
+    stream axis, as ``build_params_multi`` does: lane b takes config
+    ``stream_config_ids[b]`` (default: one lane a config)."""
     ids = (None if stream_config_ids is None
            else np.asarray(stream_config_ids, np.int64))
 
@@ -464,14 +473,16 @@ _NDIM = dict(unpack_gain=1, loud_sva=2, loud_qbq=2, loud_bypass=1,
 
 def _check_supported(params):
     """Per-stream (per-lane) trees run on the Q28 chain only: the float
-    chain's block matrices are built from homogeneous coefficients."""
+    chain's block matrices are built from homogeneous coefficients, so a
+    per-stream float tree needs the scan lowering.  (Grouped float serving
+    builds block matrices per group: ``GroupedEngine.load_numpy``.)"""
     if params.eq_f32 is not None and any(
             getattr(params, f) is not None
             and np.ndim(getattr(params, f)) > n for f, n in _NDIM.items()):
         raise NotImplementedError(
-            "per-stream parameters on the float chain (grouped and hetero "
-            "serving of RP2350 configs) are not ported yet: ROADMAP.md "
-            "section 1, item 11b")
+            "per-stream parameters on the float chain need its scan "
+            "lowering, which is not ported yet: ROADMAP.md section 1, "
+            "item 7")
 
 
 def from_numpy(params, state, device):

@@ -15,7 +15,8 @@ as per-packet block matrices (chain/mxu.py), the leveller envelope as a
 weighted block reduction, and the rest as whole-segment tensor ops.  It is
 ulp-faithful, not bit-frozen: matrix products re-round what the firmware
 computes sequentially, so it is held to <= 1e-6 relative RMS against the
-firmware-semantics golden model.
+firmware-semantics golden model.  It takes packet schedules and, for
+grouped serving, per-group block matrices over K contiguous lane groups.
 
 ``process_q28`` is the RP2040 Q28 chain, the JAX package's
 ``_process_q28``, bit-exact: both EQ scans run as the Q28 cascade kernel
@@ -25,7 +26,9 @@ parameters (``pack.build_params_multi``: any leaf may carry a trailing
 [B] stream axis) and packet schedules.
 
 In both, the leveller's packet-rate gain smoothing is a Python loop over
-packets and the PDM modulator is the CUDA kernel (kernels/pdm_cuda.py).
+packets, the PDM modulator is the CUDA kernel (kernels/pdm_cuda.py) and,
+with ``static.wire``, the s24 samples become the S/PDIF or I2S wire words
+(kernels/encoders.py) on the device.
 
   PASS 1  unpack + preamp + loudness            usb_audio.c:590-718 / 996-1047
   PASS 2  master EQ block                       dsp_pipeline.c:282-365 / .S
@@ -34,9 +37,8 @@ packets and the PDM modulator is the CUDA kernel (kernels/pdm_cuda.py).
   PASS 4  matrix mix                            usb_audio.c:751-779 / 1075-1100
   PASS 5  per-output EQ/gain/delay/convert      usb_audio.c:873-959 / 1191-1275
 
-Refused here, each naming its ROADMAP.md item: the float chain's scan
-lowering (``mxu=False``) and its packet schedules, and the device-side
-wire stage.
+Refused here, naming its ROADMAP.md item: the float chain's scan lowering
+(``mxu=False``).
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import torch
 from ..core import constants as C
 from ..core import fmath
 from ..core.qmath import f32_to_i32, q15_mul, q28_mul, q28_to_s24, wrap32
+from ..kernels import encoders
 from ..kernels.eq_cuda import q28_cascades
 from ..kernels.pdm_cuda import pdm_segment
 from ..kernels.xf_cuda import xf_q28
@@ -244,21 +247,63 @@ def _unflatten(arrs, Npkt, T):
 
 
 def refuse(static: StaticChain):
-    """Raise NotImplementedError for every chain the port does not run.
-    The Q28 chain has no block-matmul lowering (``build_static`` sets
-    ``mxu=False`` for it), so the lowering check is the float chain's."""
+    """Raise NotImplementedError for every chain the port does not run:
+    the float chain's scan lowering.  The Q28 chain has no block-matmul
+    lowering (``build_static`` sets ``mxu=False`` for it), so the lowering
+    check is the float chain's."""
     if static.is_float and not static.mxu:
         raise NotImplementedError(
             "the scan lowering (mxu=False) is not ported yet: ROADMAP.md "
             "section 1, item 7")
-    if static.is_float and static.schedule:
-        raise NotImplementedError(
-            "variable-packet schedules (44.1 kHz) on the float chain are not "
-            "ported yet: ROADMAP.md section 1, item 8b")
-    if static.wire:
-        raise NotImplementedError(
-            "the device-side wire stage (wire=True) is not ported yet: "
-            "ROADMAP.md section 1, item 9")
+
+
+def _fold(v, groups=None):
+    """The uint32 sum mod 2^32 of int32 bit patterns ``v`` [..., B], held
+    in int64: one scalar, or one a group of B / ``groups`` lanes ([K])."""
+    if groups:
+        return v.reshape(-1, groups, v.shape[-1] // groups).sum(
+            dim=(0, 2), dtype=torch.int64) & 0xFFFFFFFF
+    return v.sum(dtype=torch.int64) & 0xFFFFFFFF
+
+
+def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None):
+    """Device-side wire words (``static.wire`` non-empty): the DMA word
+    streams the firmware's PIO state machines shift out, per configured
+    slot type — S/PDIF IEC 60958 subframe pairs (audio_spdif.c:276-288,
+    sample_encoding.cpp:24-68) or I2S 24-in-32 words
+    (audio_i2s_multi.c:223-226) — with the 192-frame block position
+    carried in ``ChainState.wire_pos`` so the Z preamble lands every 192
+    frames across segments.  The JAX package's ``_wire_stage``.
+
+    ``s24``: one int32 [2, Ttot, B] tensor a pair.  emit='full' gives
+    'wire{pair}' words ([Ttot, 4, B] S/PDIF, [Ttot, 2, B] I2S, int32 bit
+    patterns); emit='reduced' one uint32 fold a pair, 'wire_sum' [npairs]
+    in int64 ([npairs, K] with ``groups``: each group's lanes folded on
+    their own), each word plane folded as it is made."""
+    pos0 = st.wire_pos
+    folds = []
+    for pair, typ in enumerate(static.wire):
+        lr = s24[pair]
+        if typ == 1:
+            planes = (encoders.encode_i2s(lr),)
+        else:
+            planes = encoders.spdif_planes(lr, pos0, static.wire_rate)
+        if static.emit == "full":
+            if typ == 1:
+                outputs[f"wire{pair}"] = planes[0].movedim(0, 1).contiguous()
+            else:
+                l, h = planes
+                outputs[f"wire{pair}"] = torch.stack([l[0], h[0], l[1],
+                                                      h[1]], dim=1)
+        else:
+            f = _fold(planes[0], groups)
+            for v in planes[1:]:
+                f = (f + _fold(v, groups)) & 0xFFFFFFFF
+            folds.append(f)
+        del planes
+    if folds:
+        outputs["wire_sum"] = torch.stack(folds)
+    return st._replace(wire_pos=(pos0 + Ttot) % C.SPDIF_BLOCK_FRAMES)
 
 
 # ----------------------------------------------------------------------------
@@ -266,36 +311,86 @@ def refuse(static: StaticChain):
 # ----------------------------------------------------------------------------
 
 
+def _s24_pairs(static: StaticChain, bufs, convert, Ttot, B, dev):
+    """S/PDIF conversion (usb_audio.c:934-940 / 1244-1257), one int32 [2,
+    Ttot, B] tensor a pair; ``convert`` maps a pair's stacked outputs to
+    s24."""
+    s24 = []
+    for pair in range(static.n_spdif):
+        lch, rch = pair * 2, pair * 2 + 1
+        if static.output_enabled[lch] or static.output_enabled[rch]:
+            s24.append(convert(torch.stack([bufs[lch], bufs[rch]])))
+        else:
+            s24.append(torch.zeros((2, Ttot, B), dtype=_I32, device=dev))
+    return s24
+
+
+def _emit_s24(static: StaticChain, outputs, bufs, s24, sched, Npkt):
+    """The s24 outputs: emit='full' 'out' and 's24' ([Npkt, K, T, B], or
+    time-flat [K, Ttot, B] with a schedule); emit='reduced' the per-channel
+    int32 sums (wrapping, as the JAX package's) [ns2, B]."""
+    if static.emit == "full":
+        out, words = torch.stack(bufs), torch.cat(s24)
+        if not static.schedule:
+            out, words = (_unflatten(v, Npkt, int(sched[0]))
+                          for v in (out, words))
+        outputs["out"], outputs["s24"] = out, words
+    else:
+        outputs["s24_sum"] = torch.cat([v.sum(dim=1) for v in s24]).to(_I32)
+
+
+def _sub_and_wire(static: StaticChain, st, outputs, s24, sub, Ttot,
+                  groups):
+    """The wire stage, then the PDM modulator on the sub output ``sub``
+    (Q28 int32 [Ttot, B])."""
+    if static.wire:
+        st = _wire_stage(static, st, s24, Ttot, outputs, groups)
+    if static.pdm_on:
+        st, words = pdm_segment(st, sub)
+        if static.emit == "full":
+            outputs["pdm"] = words                  # [Ttot, 8, B] uint32 bits
+        else:
+            outputs["pdm_sum"] = words.sum(dim=(0, 1),
+                                           dtype=torch.int64) & 0xFFFFFFFF
+    return st
+
+
 def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
-                  blocks):
+                  blocks, groups=None):
     """One segment of the RP2350 float chain.
 
     ``p``/``state``: the port's ChainParams/ChainState of tensors on the
-    device of ``x`` (int32 [n_packets, 2, block_size, B]).  ``preset_mute``
-    float32 [n_packets] (default ones).  ``blocks``: the block matrices
+    device of ``x`` (int32 [n_packets, 2, block_size, B], or [2,
+    sum(schedule), B] with a schedule).  ``preset_mute`` float32
+    [n_packets] (default ones).  ``blocks``: the block matrices
     ``mxu.build_blocks(static, p, device)`` of these params, built once per
-    parameter set by the caller.
+    parameter set by the caller.  With ``groups`` = K (grouped serving),
+    the lanes are K contiguous groups, ``blocks`` holds each group's
+    matrices (``mxu.stack_groups``) and the leaves of ``p`` that differ
+    across groups carry a trailing lane axis; reduced wire folds are then
+    per group.
 
     Returns (state', outputs) as the JAX package's ``_process_float``: the
-    input state is not modified."""
+    input state is not modified.  With a schedule, emit='full' outputs are
+    time-flat ([K, Ttot, B])."""
     from . import mxu
 
     refuse(static)
-    Npkt, _, T, B = x.shape
-    Ttot = Npkt * T
+    x2, sched, Npkt, Ttot = _segment_layout(static, x)
+    B = x2.shape[-1]
+    dev = x.device
     nout = static.n_outputs
     ns2 = static.n_spdif * 2
     master_bands, out_bands = _chain_structure(static)
     if preset_mute is None:
-        preset_mute = torch.ones((Npkt,), dtype=_F32, device=x.device)
+        preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
     st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone(),
                         eq_c=state.eq_c.clone(), eq_d=state.eq_d.clone())
 
-    # per-packet volume staging (usb_audio.c:569-574), [Npkt, 1]
+    # per-packet volume staging (usb_audio.c:569-574), [Npkt, 1|B]
     vol_mul_master = (p.vol_mul * preset_mute[:, None]) * p.master_vol
 
     # ---- PASS 1: unpack + preamp (usb_audio.c:678-686) ----
-    x2 = x.transpose(0, 1).reshape(2, Ttot, B)
     bl = x2[0].to(_F32) * p.unpack_gain[0]
     br = x2[1].to(_F32) * p.unpack_gain[1]
     del x2
@@ -303,7 +398,7 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     # ---- loudness + master EQ (block matmuls) ----
     if static.loudness_on or master_bands:
         st, bl, br = mxu.chain_a(static, p, blocks, st, bl, br,
-                                 master_bands, Npkt)
+                                 master_bands, Npkt, groups)
 
     # ---- PASS 2.5 leveller: envelope at packet ends, block phase ----
     # (leveller.c:147-262)
@@ -330,14 +425,15 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
         gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
 
         # block-rate attack/release smoothing: a recurrence over packets,
-        # with the alpha^count correction (leveller.c:223-227) hoisted
-        count = torch.full((1,), float(T), dtype=_F32, device=x.device)
-        pow_att = fmath.pow_f32(a_att, count)
-        pow_rel = fmath.pow_f32(a_rel, count)
+        # with the alpha^count correction (leveller.c:223-227) hoisted;
+        # the count is each packet's length ([Npkt, 1|B])
+        counts = torch.from_numpy(sched.astype(np.float32))[:, None].to(dev)
+        pow_att = fmath.pow_f32(a_att, counts)
+        pow_rel = fmath.pow_f32(a_rel, counts)
         gdb = st.lev_gain_db
         gdbs = []
         for k in range(Npkt):
-            alpha = torch.where(gc[k] < gdb, pow_att, pow_rel)
+            alpha = torch.where(gc[k] < gdb, pow_att[k], pow_rel[k])
             gdb = fmath.smooth_det(alpha, gdb, gc[k])
             gdbs.append(gdb)
         g_cur_p = fmath.exp10_f32(torch.stack(gdbs) * _INV20)   # [Npkt, B]
@@ -346,19 +442,28 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
                          lev_gain_prev=g_prev_p[-1])
 
         # gain ramp with the firmware's sequential accumulation, all
-        # packets at once (a one-sample packet jumps to g_cur,
-        # leveller.c:216-221)
-        gains = torch.empty((Npkt, T, B), dtype=_F32, device=x.device)
-        if T == 1:
-            gains[:, 0] = g_cur_p
+        # packets at once over the longest packet, then each packet's
+        # first n rows; a one-sample packet jumps to g_cur
+        # (leveller.c:216-221)
+        Tmax = int(sched.max())
+        if Tmax == 1:
+            gains = g_cur_p
         else:
-            step = (g_cur_p - g_prev_p) * float(np.float32(1.0)
-                                                / np.float32(T - 1))
+            inv = np.zeros(Npkt, np.float32)
+            nz = sched > 1
+            inv[nz] = np.float32(1.0) / (sched[nz] - 1).astype(np.float32)
+            step = (g_cur_p - g_prev_p) * torch.from_numpy(inv)[:, None].to(
+                dev)
             g = g_prev_p
-            for i in range(T):
+            if not nz.all():
+                one = torch.from_numpy(~nz)[:, None].to(dev)
+                g = torch.where(one, g_cur_p, g_prev_p)
+                step = torch.where(one, torch.zeros_like(step), step)
+            gains = torch.empty((Npkt, Tmax, B), dtype=_F32, device=dev)
+            for i in range(Tmax):
                 gains[:, i] = g
                 g = g + step
-        gains = gains.reshape(Ttot, B)
+            gains = _pkts_to_flat(gains, sched, Ttot)
 
         if static.leveller_lookahead:
             # time-ordered lookahead ring: the delayed stream is a window
@@ -388,7 +493,8 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     peak_mr = br.abs().amax(dim=0)
 
     # ---- PASS 3-5: crossfeed + matrix + per-output EQ ----
-    st, bufs = mxu.chain_b(static, p, blocks, st, bl, br, out_bands, Npkt)
+    st, bufs = mxu.chain_b(static, p, blocks, st, bl, br, out_bands, Npkt,
+                           groups)
     del bl, br
 
     # output gains (usb_audio.c:885-894), per packet through the
@@ -399,8 +505,13 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
         if static.output_mute[o]:
             bufs[o] = torch.zeros_like(bufs[o])
             continue
-        gain = (p.out_gain[o] * vol_mul_master)[:, :, None]   # [Npkt, 1, 1]
-        y = bufs[o].reshape(Npkt, T, B)
+        gain = p.out_gain[o] * vol_mul_master               # [Npkt, 1|B]
+        if static.schedule:                   # [Ttot, 1|B] along the packets
+            gain = _per_packet(gain, sched, Ttot)
+            y = bufs[o]
+        else:                                 # [Npkt, 1, 1|B]
+            gain = gain[:, None, :]
+            y = bufs[o].reshape(Npkt, -1, B)
         bufs[o] = torch.where(gain == 0.0, torch.zeros_like(y),
                               y * gain).reshape(Ttot, B)
 
@@ -431,39 +542,17 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     st = st._replace(clip_flags=clip)
 
     # S/PDIF conversion (usb_audio.c:934-940)
-    s24 = []
-    for pair in range(static.n_spdif):
-        lch, rch = pair * 2, pair * 2 + 1
-        on = static.output_enabled[lch] or static.output_enabled[rch]
-        for chn in (lch, rch):
-            if on:
-                dl = bufs[chn].clamp(-1.0, 1.0)
-                s24.append(f32_to_i32(dl * 8388607.0))
-            else:
-                s24.append(torch.zeros(bufs[chn].shape, dtype=torch.int32,
-                                       device=x.device))
+    s24 = _s24_pairs(static, bufs,
+                     lambda v: f32_to_i32(v.clamp(-1.0, 1.0) * 8388607.0),
+                     Ttot, B, dev)
     outputs = {}
     # peak u16 conversion (usb_audio.c:841,921): trunc(min(1,peak)*32767)
     outputs["peaks"] = (torch.clamp(peaks, max=1.0) * 32767.0).trunc().to(
         torch.int32)
-    if static.emit == "full":
-        outputs["out"] = _unflatten(torch.stack(bufs), Npkt, T)
-        outputs["s24"] = _unflatten(torch.stack(s24), Npkt, T)
-    else:
-        # int32 sums wrap, as the JAX package's do
-        outputs["s24_sum"] = torch.stack(
-            [v.sum(dim=0) for v in s24]).to(torch.int32)
-    del s24
-
-    if static.pdm_on:
-        sub_q28 = f32_to_i32(bufs[nout - 1] * float(1 << 28))
-        st, words = pdm_segment(st, sub_q28)
-        if static.emit == "full":
-            outputs["pdm"] = words                  # [Ttot, 8, B] uint32 bits
-        else:
-            # the uint32 sum mod 2^32, held in int64
-            outputs["pdm_sum"] = words.sum(dim=(0, 1),
-                                           dtype=torch.int64) & 0xFFFFFFFF
+    _emit_s24(static, outputs, bufs, s24, sched, Npkt)
+    sub = (f32_to_i32(bufs[nout - 1] * float(1 << 28)) if static.pdm_on
+           else None)
+    st = _sub_and_wire(static, st, outputs, s24, sub, Ttot, groups)
     return st, outputs
 
 
@@ -598,7 +687,8 @@ def _q28_outeq(static: StaticChain, p, st, bufs, out_bands, sched):
     return st, bufs
 
 
-def process_q28(static: StaticChain, p, state, x, preset_mute=None):
+def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
+                groups=None):
     """One segment of the RP2040 Q28 chain: the JAX package's
     ``_process_q28``, word for word.
 
@@ -614,6 +704,9 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
     region, the leveller's gain computer, is single IEEE operations and
     the integer ``fmath`` polynomials, so the card and the CPU give the
     same bits.
+
+    With ``groups`` = K (grouped serving), reduced wire folds are per
+    group of B / K contiguous lanes.
 
     Returns (state', outputs); the input state is not modified.  With a
     schedule, emit='full' outputs are time-flat ([K, Ttot, B])."""
@@ -801,31 +894,9 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None):
     st = st._replace(clip_flags=clip)
 
     # S/PDIF conversion (usb_audio.c:1244-1257)
-    s24 = []
-    for pair in range(static.n_spdif):
-        lch, rch = pair * 2, pair * 2 + 1
-        on = static.output_enabled[lch] or static.output_enabled[rch]
-        for chn in (lch, rch):
-            s24.append(q28_to_s24(bufs[chn]) if on else torch.zeros(
-                bufs[chn].shape, dtype=_I32, device=dev))
+    s24 = _s24_pairs(static, bufs, q28_to_s24, Ttot, B, dev)
     outputs = {"peaks": (peaks >> 13) & 0xFFFF}
-    if static.emit == "full" and static.schedule:
-        outputs["out"] = torch.stack(bufs)              # [nout, Ttot, B]
-        outputs["s24"] = torch.stack(s24)
-    elif static.emit == "full":
-        outputs["out"] = _unflatten(torch.stack(bufs), Npkt, int(sched[0]))
-        outputs["s24"] = _unflatten(torch.stack(s24), Npkt, int(sched[0]))
-    else:
-        # int32 sums wrap, as the JAX package's do
-        outputs["s24_sum"] = torch.stack(
-            [v.sum(dim=0) for v in s24]).to(_I32)
-    del s24
-
-    if static.pdm_on:
-        st, words = pdm_segment(st, bufs[nout - 1])
-        if static.emit == "full":
-            outputs["pdm"] = words                  # [Ttot, 8, B] uint32 bits
-        else:
-            outputs["pdm_sum"] = words.sum(dim=(0, 1),
-                                           dtype=torch.int64) & 0xFFFFFFFF
+    _emit_s24(static, outputs, bufs, s24, sched, Npkt)
+    st = _sub_and_wire(static, st, outputs, s24, bufs[nout - 1], Ttot,
+                       groups)
     return st, outputs

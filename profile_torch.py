@@ -1,16 +1,18 @@
 #!/usr/bin/env python
 """Where one full-width segment of the port's main path spends its time.
 
-    python3 profile_torch.py [rp2350|rp2040|rp2040_hetero|rp2040_44k1]
+    python3 profile_torch.py [rp2350|rp2040|rp2040_hetero|rp2040_44k1|
+                              rp2350_wire|rp2350_44k1|rp2350_hetero]
 
 Runs one full-width path on one CUDA card (emit "reduced", PDM on): the
 headline chain of the platform (default rp2350: the float chain; rp2040:
 the Q28 chain; 48 kHz, full_chain_config) at 16384 streams x 128 packets of
-48 samples; rp2040_hetero: a HeteroServer over 8 Q28 configs of one
-structure (configs.hetero_variants) scattered over the same 16384 streams;
-rp2040_44k1: the Q28 chain at 44.1 kHz, 16384 streams x 130 packets on the
-44/45 cadence (5733 samples).  It warms up, then traces one segment with
-torch.profiler (CPU and CUDA activity).
+48 samples; rp2350_wire: the float chain with the device wire words
+(wire=True, examples/serve.py's engine); *_hetero: a HeteroServer over 8
+configs of one structure (configs.hetero_variants) scattered over the same
+16384 streams; *_44k1: the chain at 44.1 kHz, 16384 streams x 130 packets
+on the 44/45 cadence (5733 samples).  It warms up, then traces one
+segment with torch.profiler (CPU and CUDA activity).
 Prints the card, the segment's wall time, the number of device kernels and
 their summed time, the device's idle share (1 - kernel time / wall), and
 the ops with the most device time; writes the full table to
@@ -39,7 +41,8 @@ import torch
 
 STREAMS, PACKETS, BLOCK = 16384, 128, 48
 SCHED441 = ((44,) * 9 + (45,)) * 13
-PATHS = ("rp2350", "rp2040", "rp2040_hetero", "rp2040_44k1")
+PATHS = ("rp2350", "rp2040", "rp2040_hetero", "rp2040_44k1", "rp2350_wire",
+         "rp2350_44k1", "rp2350_hetero")
 # (library, a piece of the kernel's mangled name, label, the memory op
 # that counts the loop's samples, its count a sample): the cascade
 # kernel's instantiations <NB, LOUD, ENV> that the paths launch (the
@@ -62,10 +65,13 @@ def _stages(path):
     from dspi_tpu_torch.chain import mxu, pipeline
     from dspi_tpu_torch.core import fmath
 
-    if path == "rp2350":
+    if path.startswith("rp2350"):
         return [(mxu, "chain_a", "loudness + master EQ (block products)"),
                 (mxu, "env_packet_ends", "leveller envelope"),
                 (mxu, "chain_b", "crossfeed + matrix + output EQ"),
+                (fmath, "smooth_det", "leveller packet loop (smooth_det)"),
+                (fmath, "det_div", "limiter reciprocal (det_div)"),
+                (pipeline, "_wire_stage", "wire words (encoders)"),
                 (pipeline, "pdm_segment", "PDM (mode prologue + kernel)")]
     return [(pipeline, "q28_cascades", "Q28 cascade kernel (2 calls)"),
             (pipeline, "xf_q28", "crossfeed kernel"),
@@ -143,17 +149,18 @@ def _path(path, dev):
     kw = dict(emit="reduced", pdm=True, pdm_fade=False, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     shape = (PACKETS, 2, BLOCK, STREAMS)
-    if path == "rp2040_hetero":
+    platform = Platform(path.split("_")[0])
+    if path.endswith("_hetero"):
         ids = np.random.default_rng(5).integers(0, 8, STREAMS)
-        eng = HeteroServer(hetero_variants(8, Platform.RP2040), ids,
+        eng = HeteroServer(hetero_variants(8, platform), ids,
                            block_size=BLOCK, **kw)
-    elif path == "rp2040_44k1":
-        eng = Engine(full_chain_config(Platform.RP2040, 44100.0),
+    elif path.endswith("_44k1"):
+        eng = Engine(full_chain_config(platform, 44100.0),
                      n_streams=STREAMS, schedule=SCHED441, **kw)
         shape = (2, sum(SCHED441), STREAMS)
     else:
-        eng = Engine(full_chain_config(Platform(path)), n_streams=STREAMS,
-                     block_size=BLOCK, **kw)
+        eng = Engine(full_chain_config(platform), n_streams=STREAMS,
+                     block_size=BLOCK, wire=path.endswith("_wire"), **kw)
     x = torch.randint(-16000, 16000, shape, generator=gen,
                       dtype=torch.int32, device=dev)
     return eng, x

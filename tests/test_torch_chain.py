@@ -25,9 +25,11 @@ from dspi_tpu_torch.chain import Engine
 from dspi_tpu_torch.configs import full_chain_config
 from dspi_tpu_torch.core import constants as C
 
-from util import golden_run, make_input
+from test_torch_pack import _convert
+from util import golden_run, make_input, rich_config
 
 B, NPKT, BLOCK, NSEG, NGOLD = 3, 8, 48, 2, 2
+RATE = 48000.0
 SEED = 0x70C4
 NOUT = 9
 
@@ -284,18 +286,73 @@ def test_reduced_emit_is_the_full_emit_reduced():
                                 dict(schedule=(44, 45)),
                                 dict(q28=True, wire=True)])
 def test_refused_features(kw):
+    """The scan lowering (mxu=False) is refused, naming its ROADMAP.md
+    item.  The other cases were refused before the port ran them and now
+    run: the wire stage on both chains (tests/test_torch_wire.py holds its
+    words) and the float chain's packet schedule
+    (tests/test_torch_float_sched.py holds its numbers)."""
     platform = Platform.RP2040 if kw.pop("q28", False) else Platform.RP2350
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Engine(full_chain_config(platform), n_streams=2, device="cpu", **kw)
+    if kw.get("mxu") is False:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
+            Engine(full_chain_config(platform), n_streams=2, device="cpu",
+                   **kw)
+        return
+    rate = 44100.0 if "schedule" in kw else RATE
+    eng = Engine(full_chain_config(platform, rate), n_streams=2,
+                 device="cpu", pdm=False, **kw)
+    rng = np.random.default_rng(9)
+    if "schedule" in kw:
+        x = rng.integers(-16000, 16000, size=(2, 89, 2)).astype(np.int32)
+    else:
+        x = make_input(rng, 2, BLOCK, 2)
+    out = eng.process(x)
+    assert torch.isfinite(out["out"].double()).all()
+    if "schedule" in kw:
+        assert out["out"].shape == (NOUT, 89, 2)
+    else:
+        pairs = eng.static.n_spdif
+        assert {f"wire{p}" for p in range(pairs)} <= set(out)
+        assert int(eng.state.wire_pos) == 2 * BLOCK
 
 
 def test_refused_rate_change_to_44k1():
+    """update_config to 44.1 kHz, once refused on the float chain, now
+    re-packetizes it to the 44/45 cadence (as many packets as before,
+    rounded up to whole 10 ms groups) and runs; then to 96 kHz."""
     eng = Engine(full_chain_config(Platform.RP2350), n_streams=2,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.update_config(full_chain_config(Platform.RP2350, 44100.0))
+                 device="cpu", pdm=False)
+    eng.update_config(full_chain_config(Platform.RP2350, 44100.0))
+    assert eng.static.schedule == (44,) * 9 + (45,)
+    assert eng.static.block_size == 45
+    x = np.random.default_rng(10).integers(-16000, 16000, size=(2, 441, 2))
+    out = eng.process(x.astype(np.int32))
+    assert out["out"].shape == (NOUT, 441, 2)
     eng.update_config(full_chain_config(Platform.RP2350, 96000.0))
-    assert eng.static.block_size == 96
+    assert eng.static.block_size == 96 and eng.static.schedule == ()
+
+
+def test_float_24bit_input():
+    """The float Engine at bit_depth=24 against the JAX engine (mxu=True)
+    and the golden model, <= 1e-6 relative RMS
+    (tests/test_runtime.py::test_float_24bit_input, on the port)."""
+    jcfg = rich_config(JPlatform.RP2350, leveller=False, loudness=False,
+                       pdm=False)
+    je = JEngine(jcfg, n_streams=B, bit_depth=24, pdm=False, mxu=True,
+                 unroll=2)
+    te = Engine(_convert(jcfg), n_streams=B, bit_depth=24, pdm=False,
+                device="cpu")
+    assert te.params.unpack_gain.tolist() == np.asarray(
+        je.params.unpack_gain).tolist()
+    x = make_input(np.random.default_rng(11), 3, 48, B, bit_depth=24)
+    got = _np(te.process(x)["out"])
+    assert _rel_rms(got, np.asarray(je.process(x)["out"])) < 1e-6
+    gold = [golden_run(GoldenDevice(jcfg.copy()), x[..., s:s + 1],
+                       bit_depth=24) for s in range(B)]
+    want = np.stack([np.stack([np.asarray(p["buf_out"]) for p in gs])
+                     for gs in gold], axis=-1)
+    assert np.sqrt(np.mean(want.astype(np.float64) ** 2)) > 1e-4
+    assert _rel_rms(got, want) < 1e-6
+    assert np.abs(got - want).max() < 1e-6
 
 
 def test_eq_band_type_flip_zeroes_state():

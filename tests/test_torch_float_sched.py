@@ -1,0 +1,179 @@
+"""The float chain at 44.1 kHz: the firmware's 44/45-sample packets at
+1 kHz (current_architecture.md:1092) as a static per-packet schedule, on
+the block-matmul lowering, against the JAX package's
+``Engine(schedule=..., mxu=True)`` (on the CPU) and the golden model fed
+the same packets (``tests/test_schedule.py::test_float_44k1_schedule``).
+
+Schedules, one for each form of the LTI passes' layout (``mxu._layout``):
+
+  * "cadence": the 44/45 cadence twice, 882 samples: the LTI passes
+    re-block uniformly (T = 42), the leveller envelope keeps the periodic
+    packet grid;
+  * "one_sample": (44, 45, 44, 45, 44, 1), 223 samples (a prime, no block
+    size): one embedded matrix a packet, an aperiodic envelope and a
+    one-sample packet (the gain ramp jumps to its target);
+  * "periodic": (44, 45, 44, 45, 45) twice, 446 samples (2 x 223): shared
+    matrices per pattern position.
+
+Held to: ``out``/``s24`` <= 1e-6 relative RMS against the JAX engine and
+the golden model; peaks within 1 LSB; PDM words equal up to the first
+differing modulator input; a uniform schedule word-equal to the blocked
+program.  ``tests/test_torch_float_leveller.py`` reads the leveller after
+130 packets.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from dspi_tpu import Platform as JPlatform
+from dspi_tpu.chain import Engine as JEngine
+from dspi_tpu.golden.model import GoldenDevice
+from dspi_tpu_torch import Platform
+from dspi_tpu_torch.chain import Engine, mxu
+from dspi_tpu_torch.configs import full_chain_config
+
+from test_torch_chain import _pcm_prefix_equal, _rel_rms
+from test_torch_pack import _convert
+from test_torch_q28 import _np
+from test_torch_schedule import _golden_feed
+from util import make_input, rich_config
+
+B = 2
+SCHEDULES = {
+    "cadence": ((44,) * 9 + (45,)) * 2,
+    "one_sample": (44, 45, 44, 45, 44, 1),
+    "periodic": (44, 45, 44, 45, 45) * 2,
+}
+# the LTI layout of each: its block size (None: packet-sized matrices) and
+# its period (None: uniform or aperiodic)
+LTI = {"cadence": (42, 1), "one_sample": (None, None),
+       "periodic": (None, 5)}
+
+
+def _full(out):
+    return {k: _np(v) for k, v in out.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _run(name):
+    """The JAX engine, the port (from the JAX engine's params and state)
+    and the golden model over 2 segments, the second with a preset-mute
+    dip."""
+    sched = SCHEDULES[name]
+    jcfg = rich_config(JPlatform.RP2350, sample_rate=44100.0)
+    # the 480-sample lookahead would hold a short schedule's segments at 0
+    jcfg.leveller.lookahead = sum(sched) > 480
+    je = JEngine(jcfg, n_streams=B, schedule=sched, emit="full", mxu=True,
+                 unroll=4)
+    te = Engine(_convert(jcfg), n_streams=B, schedule=sched, emit="full",
+                device="cpu")
+    te.load_params_state(je.params, je.state)
+    golds = [GoldenDevice(jcfg.copy()) for _ in range(B)]
+    rng = np.random.default_rng(0x4410)
+    outs, gold = [], []
+    for seg in range(2):
+        x = rng.integers(-16000, 16000,
+                         size=(2, sum(sched), B)).astype(np.int32)
+        mute = np.ones(len(sched), np.float32)
+        if seg:
+            mute[1:3] = (0.5, 0.0)
+        outs.append((_full(je.process(x, mute)), _full(te.process(x, mute))))
+        gold.append(_golden_feed(golds, x, sched, mute))
+    return outs, je, te, gold
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_lti_layout(name):
+    """The LTI passes' layout, the JAX package's rule (``_lti_block``)."""
+    static = Engine(full_chain_config(Platform.RP2350, 44100.0), 1,
+                    schedule=SCHEDULES[name], pdm=False, device="cpu").static
+    lay = mxu.sched_layout(static, 0, lti=True)
+    block, period = LTI[name]
+    assert lay.uniform == (block is not None)
+    assert (lay.tmax == block) if block else lay.tmax == 45
+    assert lay.period == period
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_float_44k1_matches_jax_engine(name):
+    outs, _, te, _ = _run(name)
+    ttot = sum(SCHEDULES[name])
+    for seg, (jo, to) in enumerate(outs):
+        assert set(jo) == set(to) == {"out", "s24", "peaks", "pdm"}
+        assert to["out"].shape == (9, ttot, B)             # time-flat
+        assert np.sqrt(np.mean(jo["out"].astype(np.float64) ** 2)) > 1e-4
+        for k in ("out", "s24"):
+            assert _rel_rms(to[k], jo[k]) < 1e-6, (seg, k)
+        assert np.abs(to["peaks"] - jo["peaks"]).max() <= 1
+        assert _pcm_prefix_equal(to["pdm"].view(np.uint32), jo["pdm"],
+                                 to["out"][-1], jo["out"][-1]) > 0
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_float_44k1_matches_golden(name):
+    outs, _, _, gold = _run(name)
+    for seg, (_, to) in enumerate(outs):
+        want = np.stack([np.concatenate([np.asarray(p["buf_out"])
+                                         for p in per], axis=-1)
+                         for per in gold[seg]], axis=-1)
+        assert _rel_rms(to["out"], want) < 1e-6, seg
+        spdif = np.stack([np.concatenate([np.asarray(p["spdif"])
+                                          for p in per], axis=1)
+                          for per in gold[seg]], axis=-1)  # [4, Ttot, 2, B]
+        want24 = np.moveaxis(spdif, 2, 1).reshape(8, -1, B)
+        assert _rel_rms(to["s24"], want24) < 1e-6, seg
+        gpeaks = np.max([[p["peaks"] for p in per] for per in gold[seg]],
+                        axis=1).T
+        assert np.abs(to["peaks"] - gpeaks).max() <= 1
+
+
+def test_uniform_schedule_equals_blocked():
+    """A uniform schedule reproduces the fixed-block program word for word
+    (tests/test_schedule.py::test_uniform_schedule_equals_blocked, on the
+    float chain): the same math, another plumbing."""
+    cfg = _convert(rich_config(JPlatform.RP2350))
+    rng = np.random.default_rng(0x48)
+    blocked = Engine(cfg, n_streams=B, block_size=48, device="cpu")
+    sched = Engine(cfg, n_streams=B, schedule=(48,) * 6, device="cpu")
+    for _ in range(2):
+        x4 = make_input(rng, 6, 48, B)
+        out_b = blocked.process(x4)
+        out_s = sched.process(np.moveaxis(x4, 1, 0).reshape(2, 6 * 48, B))
+        want = out_b["out"].movedim(0, 1).reshape(out_s["out"].shape)
+        assert torch.equal(out_s["out"], want)
+        assert torch.equal(out_s["peaks"], out_b["peaks"])
+        assert torch.equal(out_s["pdm"], out_b["pdm"])
+    for f, a, b in zip(blocked.state._fields, blocked.state, sched.state):
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert torch.equal(a, b), f
+
+
+def test_update_config_48_to_44k1_matches_jax():
+    """update_config 48 -> 44.1 kHz on both engines: the port re-packetizes
+    to the 44/45 cadence, rebuilds its block matrices and carries its
+    filter state, as the JAX engine does."""
+    jcfg = rich_config(JPlatform.RP2350, leveller=False)
+    je = JEngine(jcfg, n_streams=B, block_size=48, emit="full", mxu=True,
+                 unroll=4)
+    te = Engine(_convert(jcfg), n_streams=B, block_size=48, emit="full",
+                device="cpu")
+    rng = np.random.default_rng(0x4844)
+    x = make_input(rng, 10, 48, B)
+    outs = [(_full(je.process(x)), _full(te.process(x)))]
+    c = rich_config(JPlatform.RP2350, sample_rate=44100.0, leveller=False)
+    je.update_config(c)
+    te.update_config(_convert(c))
+    assert te.static.schedule == je.static.schedule == (44,) * 9 + (45,)
+    assert te.static.block_size == 45
+    for _ in range(2):
+        x = rng.integers(-16000, 16000, size=(2, 441, B)).astype(np.int32)
+        outs.append((_full(je.process(x)), _full(te.process(x))))
+    for i, (jo, to) in enumerate(outs):
+        for k in ("out", "s24"):
+            assert to[k].shape == jo[k].shape, (i, k)
+            assert _rel_rms(to[k], jo[k]) < 1e-6, (i, k)
+    assert outs[-1][1]["out"].shape == (9, 441, B)

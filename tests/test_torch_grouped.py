@@ -203,13 +203,32 @@ def test_refusals():
     bad.leveller.enabled = False
     with pytest.raises(ValueError, match="static structure"):
         eng.update_group(0, bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11b"):
-        GroupedEngine(cfgs, streams_per_group=G, layout="vmap", device="cpu")
+    # once refused, now run: the vmap layout (its params and state
+    # exchanged in the JAX package's vmapped layout) and float configs
+    # (tests/test_torch_float_grouped.py holds their numbers)
+    vm = GroupedEngine(cfgs, streams_per_group=G, layout="vmap", pdm=False,
+                       device="cpu")
+    assert vm.layout == "vmap"
+    params, state = vm.to_numpy()
+    assert params.master_vol.shape == (K,) and state.lev_env.shape == (K, 2,
+                                                                         G)
+    x = _inputs(10, None, K * G, groups=K)[0]
+    flat = GroupedEngine(cfgs, streams_per_group=G, pdm=False, device="cpu")
+    a, b = vm.process(x), flat.process(x)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
     floats = [_convert(c) for c in _cfgs(JPlatform.RP2350)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11b"):
-        GroupedEngine(floats, streams_per_group=G, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11b"):
-        HeteroServer(floats, IDS, device="cpu")
+    fg = GroupedEngine(floats, streams_per_group=G, pdm=False, device="cpu")
+    assert fg.layout == "vmap" and fg.blocks.a[0].Tx.shape[0] == K
+    assert fg.process(x)["out"].shape == (K, NPKT, 9, BLOCK, G)
+    srv = HeteroServer(floats, IDS, pdm=False, device="cpu")
+    assert srv.process(_inputs(11, None, len(IDS))[0])["out"].shape == (
+        NPKT, 9, BLOCK, len(IDS))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
+        GroupedEngine(floats, streams_per_group=G, layout="flat",
+                      device="cpu")
+    with pytest.raises(ValueError, match="unknown layout"):
+        GroupedEngine(cfgs, streams_per_group=G, layout="scan", device="cpu")
     with pytest.raises(ValueError, match="out of range"):
         HeteroServer(cfgs, [0, 3], device="cpu")
     if not torch.cuda.is_available():

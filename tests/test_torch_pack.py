@@ -108,15 +108,17 @@ def test_from_numpy_round_trip(name):
 
 
 def test_per_stream_params_refused():
-    """Per-stream float trees are refused (the float chain's grouped
-    serving is ROADMAP.md item 11b); per-stream Q28 trees load."""
+    """Per-stream float trees are refused (their block matrices need
+    homogeneous coefficients: the scan lowering, ROADMAP.md item 7;
+    grouped float serving takes per-group trees,
+    tests/test_torch_float_grouped.py); per-stream Q28 trees load."""
     cfg = bench.full_chain_config(JPlatform.RP2350)
     jd = jderive(cfg)
     jst = jpack.build_static(jd, block_size=48)
     multi = jpack.build_params_multi([jd, jd], jst)
     multi = multi._replace(xf=np.stack([multi.xf, multi.xf], -1))
     js = jpack.init_state(jst, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
         pack.from_numpy(multi, js, "cpu")
     with pytest.raises(ValueError, match="scan path"):
         pack.build_params_multi([derive(_convert(cfg))], pack.build_static(

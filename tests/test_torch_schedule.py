@@ -184,13 +184,24 @@ def test_schedule_helpers_match_jax(sched):
 
 
 def test_float_schedule_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8b"):
-        Engine(full_chain_config(Platform.RP2350, 44100.0), n_streams=2,
-               schedule=((44,) * 9 + (45,)), device="cpu")
-    eng = Engine(full_chain_config(Platform.RP2350), n_streams=2,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8b"):
-        eng.update_config(full_chain_config(Platform.RP2350, 44100.0))
+    """The float chain's schedule, once refused, runs: an Engine built at
+    44.1 kHz on the cadence and one moved there by update_config give the
+    same words from the same start (tests/test_torch_float_sched.py holds
+    them to the JAX engine and the golden model)."""
+    sched = (44,) * 9 + (45,)
+    built = Engine(full_chain_config(Platform.RP2350, 44100.0, pdm=False),
+                   n_streams=2, schedule=sched, device="cpu")
+    moved = Engine(full_chain_config(Platform.RP2350, pdm=False),
+                   n_streams=2, device="cpu")
+    moved.update_config(full_chain_config(Platform.RP2350, 44100.0,
+                                          pdm=False))
+    assert moved.static == built.static
+    x = np.random.default_rng(12).integers(-16000, 16000,
+                                           size=(2, 441, 2)).astype(np.int32)
+    a, b = built.process(x), moved.process(x)
+    assert a["out"].shape == (9, 441, 2)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 def test_scheduled_input_shape_checked():
