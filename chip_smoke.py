@@ -820,9 +820,8 @@ def bound(ops: dict, nbytes) -> tuple[float, str, str]:
 
 def drive_path(dev, card: str, label: str, eng, x, audio_s: float,
                want: dict, n_peaks: int, peak_max: int = 0xFFFF,
-               keys: tuple = ("peaks", "s24_sum", "pdm_sum"),
-               segments: int = SEGMENTS) -> dict:
-    """A main path at full width: one warm-up segment, then ``segments``
+               keys: tuple = ("peaks", "s24_sum", "pdm_sum")) -> dict:
+    """A main path at full width: one warm-up segment, then SEGMENTS
     chained segments with a fresh input each (x ^ i), launch counts set to
     0 just before and read just after.  Fails unless the launches are
     exactly ``want`` per segment and the outputs are sane (exactly
@@ -831,26 +830,26 @@ def drive_path(dev, card: str, label: str, eng, x, audio_s: float,
     segment carries (the RTF counts real streams)."""
     from dspi_tpu_torch.kernels import LAUNCHES
 
-    eng.process(x ^ segments)                      # warm-up segment
+    eng.process(x ^ SEGMENTS)                      # warm-up segment
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     for k in list(LAUNCHES):
         LAUNCHES[k] = 0
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(segments + 1)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(SEGMENTS + 1)]
     outs = []
     h0 = time.perf_counter()
     ev[0].record()
-    for i in range(segments):
+    for i in range(SEGMENTS):
         outs.append(eng.process(x ^ i))
         ev[i + 1].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - h0
     launches = {k: n for k, n in LAUNCHES.items() if n}
 
-    want = {k: n * segments for k, n in want.items()}
+    want = {k: n * SEGMENTS for k, n in want.items()}
     if launches != want:
-        fail(f"{label} launched {launches} in {segments} segments, not "
+        fail(f"{label} launched {launches} in {SEGMENTS} segments, not "
              f"{want}")
     B = x.shape[-1]
     for i, out in enumerate(outs):
@@ -865,15 +864,15 @@ def drive_path(dev, card: str, label: str, eng, x, audio_s: float,
         if v is not None and v.is_floating_point() and \
                 not torch.isfinite(v).all():
             fail(f"{label}: state {f} not finite")
-    seg_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(segments)]
-    mean_ms = sum(seg_ms) / segments
+    seg_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(SEGMENTS)]
+    mean_ms = sum(seg_ms) / SEGMENTS
     rtf = audio_s / (mean_ms / 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{label}: per segment {[round(m, 3) for m in seg_ms]} ms (CUDA "
           f"events), mean {mean_ms:.3f} ms, host wall "
           f"{1e3 * wall / SEGMENTS:.3f} ms; RTF {rtf:.1f}x; peak memory "
           f"{peak_gb:.2f} GB; launches {launches}; card {card}", flush=True)
-    return {"launches": launches, "segments": segments, "seg_ms": seg_ms,
+    return {"launches": launches, "seg_ms": seg_ms,
             "mean_ms": mean_ms, "rtf": rtf, "peak_gb": peak_gb}
 
 
@@ -1407,7 +1406,7 @@ def main() -> None:
                      ("rp2350_float_44k1", f_441),
                      ("rp2350_float_hetero", f_het))}
     pdm_row["paths"] = {
-        p: {k: r[k] for k in ("mean_ms", "rtf", "peak_gb", "segments")}
+        p: {k: r[k] for k in ("mean_ms", "rtf", "peak_gb")}
         for p, r in (("rp2350_float", main_path), ("rp2040_q28_16bit", q28),
                      ("rp2040_q28_24bit", q28_24),
                      ("rp2040_q28_hetero", hetero), ("rp2040_q28_44k1", s441),

@@ -73,11 +73,11 @@ class GroupedEngine:
         self.cfgs = list(cfgs)
         self.n_groups = len(self.cfgs)
         self.streams_per_group = streams_per_group
-        self.deriveds = [derive(c) for c in self.cfgs]
+        deriveds = [derive(c) for c in self.cfgs]
         statics = [build_static(d, block_size=block_size,
                                 bit_depth=bit_depth, emit=emit, pdm=pdm,
                                 schedule=schedule, wire=wire)
-                   for d in self.deriveds]
+                   for d in deriveds]
         if any(s != statics[0] for s in statics):
             raise ValueError(
                 "grouped configs must share static structure (band kinds, "
@@ -95,7 +95,7 @@ class GroupedEngine:
         self.layout = layout
         self.blocks = None
         self._group_params = [build_params(d, self.static)
-                              for d in self.deriveds]
+                              for d in deriveds]
         self._set_params()
         # uniform per-stream fills, so init_state(K*G) is leaf for leaf the
         # lane-axis concatenation of K per-group init_state(G)s
@@ -138,7 +138,6 @@ class GroupedEngine:
         if s != self.static:
             raise ValueError("new config changes the static structure")
         self.cfgs[k] = cfg
-        self.deriveds[k] = d
         self._group_params[k] = build_params(d, self.static)
         self._set_params(k)
 
@@ -167,6 +166,7 @@ class GroupedEngine:
         if self.layout == "flat":
             self.params, self.state = from_numpy(params, ChainState(**fields),
                                                  self.device)
+            self._group_params = self._split_lanes(params)
             return
         group_params = []
         for k in range(K):
@@ -182,6 +182,29 @@ class GroupedEngine:
         self._group_params = group_params
         self._set_params()
         self.state = to_device(ChainState(**fields), self.device)
+
+    def _split_lanes(self, params):
+        """Per-group NumPy trees of a flat per-lane tree (each lane-axis
+        leaf read at its group's first lane), so that a later
+        ``update_group`` rebuilds the other groups from what was loaded."""
+        G = self.streams_per_group
+        trees = []
+        for k in range(self.n_groups):
+            leaves = []
+            for f in ChainParams._fields:
+                v = getattr(params, f)
+                if v is not None:
+                    v = np.asarray(v)
+                    if v.ndim > _NDIM[f]:
+                        block = v[..., k * G:(k + 1) * G]
+                        if (block != block[..., :1]).any():
+                            raise ValueError(
+                                f"flat-layout params: group {k}'s lanes "
+                                f"differ in {f}")
+                        v = block[..., 0]
+                leaves.append(v)
+            trees.append(ChainParams(*leaves))
+        return trees
 
     def to_numpy(self):
         """(params, state) as NumPy trees in the JAX package's layout of
@@ -299,6 +322,7 @@ class HeteroServer:
         dev = self.grouped.device
         self._perm = torch.from_numpy(perm.reshape(-1)).to(dev)
         self._inv = torch.from_numpy(inv).to(dev)
+        self._valid = torch.from_numpy(vmask.astype(np.int64)).to(dev)
         self.padding_waste = float(K * G) / max(self.n_streams, 1) - 1.0
 
     @property
@@ -330,10 +354,13 @@ class HeteroServer:
         one gather of the input into bucket order, one of each output
         back."""
         raw, perm, inv = self.grouped.flat_segment_fn, self._perm, self._inv
+        valid = self._valid
 
         def fn(params, state, x, pm):
-            state, out = raw(params, state, x.index_select(-1, perm), pm)
-            # reduced wire folds stay per bucket: [K, npairs]
+            state, out = raw(params, state, x.index_select(-1, perm), pm,
+                             wire_lanes=valid)
+            # reduced wire folds stay per bucket, [K, npairs], each of its
+            # real streams' words only (padding lanes are left out)
             return state, {k: v.movedim(-1, 0) if k == "wire_sum"
                            else v.index_select(-1, inv)
                            for k, v in out.items()}

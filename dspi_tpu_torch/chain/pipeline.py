@@ -257,16 +257,22 @@ def refuse(static: StaticChain):
             "section 1, item 7")
 
 
-def _fold(v, groups=None):
+def _fold(v, groups=None, lanes=None):
     """The uint32 sum mod 2^32 of int32 bit patterns ``v`` [..., B], held
-    in int64: one scalar, or one a group of B / ``groups`` lanes ([K])."""
+    in int64: one scalar, or one a group of B / ``groups`` lanes ([K]);
+    ``lanes`` (int64 [B] of 0/1, or None) leaves the lanes at 0 out."""
+    if not groups and lanes is None:
+        return v.sum(dtype=torch.int64) & 0xFFFFFFFF
+    per = v.reshape(-1, v.shape[-1]).sum(dim=0, dtype=torch.int64)
+    if lanes is not None:
+        per = per * lanes
     if groups:
-        return v.reshape(-1, groups, v.shape[-1] // groups).sum(
-            dim=(0, 2), dtype=torch.int64) & 0xFFFFFFFF
-    return v.sum(dtype=torch.int64) & 0xFFFFFFFF
+        return per.reshape(groups, -1).sum(dim=1) & 0xFFFFFFFF
+    return per.sum() & 0xFFFFFFFF
 
 
-def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None):
+def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None,
+                lanes=None):
     """Device-side wire words (``static.wire`` non-empty): the DMA word
     streams the firmware's PIO state machines shift out, per configured
     slot type — S/PDIF IEC 60958 subframe pairs (audio_spdif.c:276-288,
@@ -275,15 +281,20 @@ def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None):
     carried in ``ChainState.wire_pos`` so the Z preamble lands every 192
     frames across segments.  The JAX package's ``_wire_stage``.
 
-    ``s24``: one int32 [2, Ttot, B] tensor a pair.  emit='full' gives
+    ``s24``: one int32 [Ttot, B] tensor a channel; each pair is stacked
+    to [2, Ttot, B] here, so the encoder runs once for both channels, and
+    its entries in the list are set to None.  emit='full' gives
     'wire{pair}' words ([Ttot, 4, B] S/PDIF, [Ttot, 2, B] I2S, int32 bit
     patterns); emit='reduced' one uint32 fold a pair, 'wire_sum' [npairs]
     in int64 ([npairs, K] with ``groups``: each group's lanes folded on
-    their own), each word plane folded as it is made."""
+    their own; ``lanes`` leaves the lanes it holds at 0 out), each word
+    plane folded as it is made."""
     pos0 = st.wire_pos
     folds = []
     for pair, typ in enumerate(static.wire):
-        lr = s24[pair]
+        lr = torch.stack([s24[2 * pair], s24[2 * pair + 1]])
+        # the channels are not read again: free them for the pair's words
+        s24[2 * pair] = s24[2 * pair + 1] = None
         if typ == 1:
             planes = (encoders.encode_i2s(lr),)
         else:
@@ -296,9 +307,9 @@ def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None):
                 outputs[f"wire{pair}"] = torch.stack([l[0], h[0], l[1],
                                                       h[1]], dim=1)
         else:
-            f = _fold(planes[0], groups)
+            f = _fold(planes[0], groups, lanes)
             for v in planes[1:]:
-                f = (f + _fold(v, groups)) & 0xFFFFFFFF
+                f = (f + _fold(v, groups, lanes)) & 0xFFFFFFFF
             folds.append(f)
         del planes
     if folds:
@@ -311,17 +322,17 @@ def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None):
 # ----------------------------------------------------------------------------
 
 
-def _s24_pairs(static: StaticChain, bufs, convert, Ttot, B, dev):
-    """S/PDIF conversion (usb_audio.c:934-940 / 1244-1257), one int32 [2,
-    Ttot, B] tensor a pair; ``convert`` maps a pair's stacked outputs to
-    s24."""
+def _s24_channels(static: StaticChain, bufs, convert, Ttot, B, dev):
+    """S/PDIF conversion (usb_audio.c:934-940 / 1244-1257), one int32
+    [Ttot, B] tensor a channel of the S/PDIF pairs; ``convert`` maps a
+    channel's output buffer to s24."""
     s24 = []
     for pair in range(static.n_spdif):
         lch, rch = pair * 2, pair * 2 + 1
-        if static.output_enabled[lch] or static.output_enabled[rch]:
-            s24.append(convert(torch.stack([bufs[lch], bufs[rch]])))
-        else:
-            s24.append(torch.zeros((2, Ttot, B), dtype=_I32, device=dev))
+        on = static.output_enabled[lch] or static.output_enabled[rch]
+        for chn in (lch, rch):
+            s24.append(convert(bufs[chn]) if on else torch.zeros(
+                (Ttot, B), dtype=_I32, device=dev))
     return s24
 
 
@@ -330,21 +341,28 @@ def _emit_s24(static: StaticChain, outputs, bufs, s24, sched, Npkt):
     time-flat [K, Ttot, B] with a schedule); emit='reduced' the per-channel
     int32 sums (wrapping, as the JAX package's) [ns2, B]."""
     if static.emit == "full":
-        out, words = torch.stack(bufs), torch.cat(s24)
+        out, words = torch.stack(bufs), torch.stack(s24)
         if not static.schedule:
             out, words = (_unflatten(v, Npkt, int(sched[0]))
                           for v in (out, words))
         outputs["out"], outputs["s24"] = out, words
     else:
-        outputs["s24_sum"] = torch.cat([v.sum(dim=1) for v in s24]).to(_I32)
+        outputs["s24_sum"] = torch.stack([v.sum(dim=0) for v in s24]).to(_I32)
 
 
-def _sub_and_wire(static: StaticChain, st, outputs, s24, sub, Ttot,
-                  groups):
-    """The wire stage, then the PDM modulator on the sub output ``sub``
-    (Q28 int32 [Ttot, B])."""
+def _s24_wire_pdm(static: StaticChain, st, outputs, bufs, convert, sub,
+                  sched, Npkt, Ttot, groups, lanes):
+    """The chain's tail: S/PDIF conversion of the output buffers ``bufs``
+    (``convert`` a channel) and the s24 outputs, the wire stage, then the
+    PDM modulator on the sub output ``sub`` (Q28 int32 [Ttot, B]).  The
+    s24 words are freed before the PDM stage, whose words set the
+    segment's peak memory."""
+    B, dev = bufs[0].shape[-1], bufs[0].device
+    s24 = _s24_channels(static, bufs, convert, Ttot, B, dev)
+    _emit_s24(static, outputs, bufs, s24, sched, Npkt)
     if static.wire:
-        st = _wire_stage(static, st, s24, Ttot, outputs, groups)
+        st = _wire_stage(static, st, s24, Ttot, outputs, groups, lanes)
+    del s24
     if static.pdm_on:
         st, words = pdm_segment(st, sub)
         if static.emit == "full":
@@ -356,7 +374,7 @@ def _sub_and_wire(static: StaticChain, st, outputs, s24, sub, Ttot,
 
 
 def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
-                  blocks, groups=None):
+                  blocks, groups=None, wire_lanes=None):
     """One segment of the RP2350 float chain.
 
     ``p``/``state``: the port's ChainParams/ChainState of tensors on the
@@ -368,7 +386,9 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     the lanes are K contiguous groups, ``blocks`` holds each group's
     matrices (``mxu.stack_groups``) and the leaves of ``p`` that differ
     across groups carry a trailing lane axis; reduced wire folds are then
-    per group.
+    per group.  ``wire_lanes`` (int64 [B] of 0/1): only the lanes at 1
+    enter the reduced wire folds (a hetero server's bucket padding is
+    left out).
 
     Returns (state', outputs) as the JAX package's ``_process_float``: the
     input state is not modified.  With a schedule, emit='full' outputs are
@@ -541,18 +561,17 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
                        << ch_bit)
     st = st._replace(clip_flags=clip)
 
-    # S/PDIF conversion (usb_audio.c:934-940)
-    s24 = _s24_pairs(static, bufs,
-                     lambda v: f32_to_i32(v.clamp(-1.0, 1.0) * 8388607.0),
-                     Ttot, B, dev)
     outputs = {}
     # peak u16 conversion (usb_audio.c:841,921): trunc(min(1,peak)*32767)
     outputs["peaks"] = (torch.clamp(peaks, max=1.0) * 32767.0).trunc().to(
         torch.int32)
-    _emit_s24(static, outputs, bufs, s24, sched, Npkt)
     sub = (f32_to_i32(bufs[nout - 1] * float(1 << 28)) if static.pdm_on
            else None)
-    st = _sub_and_wire(static, st, outputs, s24, sub, Ttot, groups)
+    # S/PDIF conversion (usb_audio.c:934-940)
+    st = _s24_wire_pdm(
+        static, st, outputs, bufs,
+        lambda v: f32_to_i32(v.clamp(-1.0, 1.0) * 8388607.0), sub, sched,
+        Npkt, Ttot, groups, wire_lanes)
     return st, outputs
 
 
@@ -688,7 +707,7 @@ def _q28_outeq(static: StaticChain, p, st, bufs, out_bands, sched):
 
 
 def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
-                groups=None):
+                groups=None, wire_lanes=None):
     """One segment of the RP2040 Q28 chain: the JAX package's
     ``_process_q28``, word for word.
 
@@ -706,7 +725,7 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
     same bits.
 
     With ``groups`` = K (grouped serving), reduced wire folds are per
-    group of B / K contiguous lanes.
+    group of B / K contiguous lanes; ``wire_lanes`` as ``process_float``'s.
 
     Returns (state', outputs); the input state is not modified.  With a
     schedule, emit='full' outputs are time-flat ([K, Ttot, B])."""
@@ -893,10 +912,8 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
         clip = clip | ((peaks[chi] > C.CLIP_THRESH_Q28).to(_I32) << ch_bit)
     st = st._replace(clip_flags=clip)
 
-    # S/PDIF conversion (usb_audio.c:1244-1257)
-    s24 = _s24_pairs(static, bufs, q28_to_s24, Ttot, B, dev)
     outputs = {"peaks": (peaks >> 13) & 0xFFFF}
-    _emit_s24(static, outputs, bufs, s24, sched, Npkt)
-    st = _sub_and_wire(static, st, outputs, s24, bufs[nout - 1], Ttot,
-                       groups)
+    # S/PDIF conversion (usb_audio.c:1244-1257)
+    st = _s24_wire_pdm(static, st, outputs, bufs, q28_to_s24, bufs[nout - 1],
+                       sched, Npkt, Ttot, groups, wire_lanes)
     return st, outputs

@@ -148,14 +148,20 @@ def spdif_planes(s24: torch.Tensor, start_frame, sample_rate: int = 48000):
     h_hdr = ((ph & 0x7F) << 24) | (((((ph & 0x2A) * 0x2A) >> 6) & 1) << 31)
     l_hdr = torch.stack([l_L, l_R]).view(2, T, *extra)
     tb = _tables(s24.device)
-    b0 = s24 & 0xFF
-    b1 = (s24 >> 8) & 0xFF
-    b2 = (s24 >> 16) & 0xFF
-    l = _lookup(tb[0], b0) | _lookup(tb[1], b1) | l_hdr
-    # the byte parts of h occupy disjoint bits (0-7, 8-23); bit 31 sums
-    # the four parities
-    h = (_lookup(tb[2], b1) ^ _lookup(tb[3], b2) ^ _lookup(tb[4], b0)
-         ^ h_hdr.view(T, *extra))
+    # one byte plane at a time, the words built in place, so that at most
+    # four [2, T, ...] planes besides the input are live at once.  The byte parts of h
+    # occupy disjoint bits (0-7, 8-23); bit 31 sums the four parities
+    b = s24 & 0xFF
+    l = _lookup(tb[0], b)
+    h = _lookup(tb[4], b)
+    b = (s24 >> 8).bitwise_and_(0xFF)
+    l |= _lookup(tb[1], b)
+    l |= l_hdr
+    h ^= _lookup(tb[2], b)
+    b = (s24 >> 16).bitwise_and_(0xFF)
+    h ^= _lookup(tb[3], b)
+    del b
+    h ^= h_hdr.view(T, *extra)
     return l, h
 
 

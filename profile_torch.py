@@ -18,7 +18,10 @@ their summed time, the device's idle share (1 - kernel time / wall), and
 the ops with the most device time; writes the full table to
 chiprun_out/profile_<path>.txt.  Then times each stage of one more
 segment (synchronized before and after each call of a stage, so stages
-cannot overlap and the sum is slower than an unwrapped segment).
+cannot overlap and the sum is slower than an unwrapped segment).  With
+wire words (rp2350_wire), it then traces the wire stage alone on one
+segment's arguments: its kernels and their device time, and the bytes its
+torch ops move, in passes of a channel pair's [2, T, B] int32 plane.
 
 Last, it counts the instructions of each CUDA kernel's per-sample loop in
 the SASS of the built libraries (cuobjdump), by opcode and by pipe (the
@@ -38,6 +41,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 STREAMS, PACKETS, BLOCK = 16384, 128, 48
 SCHED441 = ((44,) * 9 + (45,)) * 13
@@ -140,6 +144,78 @@ def loop_ops(out: Path) -> None:
               f"{top}")
 
 
+def wire_trace(eng, x) -> None:
+    """The wire stage of one segment alone, on the arguments the segment
+    gives it: its device kernels (count and summed time, torch.profiler)
+    and the bytes its torch ops read and write (each operand's and each
+    result's storage, from a dispatch trace of the same call; views move
+    none), also in
+    passes of one [2, T, B] int32 plane (a channel pair)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from dspi_tpu_torch.chain import pipeline
+
+    fn, saved = pipeline._wire_stage, {}
+
+    def grab(static, st, s24, *rest):
+        saved.update(static=static, st=st, s24=list(s24), rest=rest)
+        return fn(static, st, s24, *rest)
+
+    pipeline._wire_stage = grab
+    try:
+        eng.process(x)
+    finally:
+        pipeline._wire_stage = fn
+
+    def call():
+        Ttot, _, *rest = saved["rest"]
+        return fn(saved["static"], saved["st"], list(saved["s24"]), Ttot,
+                  {}, *rest)
+
+    class Bytes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.is_view:                 # an alias: moves no bytes
+                return out
+            self.ops += 1
+            for t in tree_flatten((args, kwargs, out))[0]:
+                if isinstance(t, torch.Tensor):
+                    self.bytes += min(t.untyped_storage().nbytes(),
+                                      t.numel() * t.element_size())
+            return out
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    n = sum(e.count for e in kernels)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    with Bytes() as b:
+        call()
+    plane = 2 * x.shape[-1] * saved["rest"][0] * 4
+    print(f"wire stage alone ({len(saved['static'].wire)} pairs, slots "
+          f"{saved['static'].wire}): {n} kernels, device time {dev_ms:.3f} "
+          f"ms; {b.ops} torch ops moving {b.bytes / 1e9:.3f} GB (operands "
+          f"and results), {b.bytes / plane:.1f} passes of a [2, T, B] "
+          f"int32 pair plane ({plane / 1e6:.1f} MB), "
+          f"{b.bytes / plane / len(saved['static'].wire):.1f} a pair; "
+          f"{b.bytes / max(dev_ms, 1e-9) / 1e9:.3f} TB/s over the "
+          f"kernels' time")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        print(f"  wire kernel x{e.count}: "
+              f"{e.self_device_time_total / 1e3:.3f} ms  {e.key[:90]}")
+
+
 def _path(path, dev):
     """(engine, one segment's input) of a path."""
     from dspi_tpu_torch import Platform
@@ -172,7 +248,6 @@ def main() -> None:
         raise SystemExit(f"unknown path {path}: one of {', '.join(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -207,6 +282,8 @@ def main() -> None:
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     for label, ms in stage_times(eng, x ^ 3, path).items():
         print(f"stage {ms:10.3f} ms  {label}")
+    if eng.static.wire:
+        wire_trace(eng, x ^ 4)
     loop_ops(out)
 
 

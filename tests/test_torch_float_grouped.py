@@ -44,10 +44,10 @@ IDS = np.array([2, 0, 1, 0, 2, 2, 1, 0, 1])      # scattered, unequal counts
 SCHED = (44, 45, 44, 45, 44, 1)
 
 
-def _cfgs(sample_rate=48000.0):
+def _cfgs(sample_rate=48000.0, platform=JPlatform.RP2350):
     cfgs = []
     for k in range(K):
-        c = rich_config(JPlatform.RP2350, sample_rate=sample_rate)
+        c = rich_config(platform, sample_rate=sample_rate)
         c.leveller.lookahead = False         # short segments stay audible
         c.leveller.speed = k % 3
         c.master_volume_db = -6.0 - 3 * k
@@ -284,6 +284,36 @@ def test_per_group_wire_sum():
                        wire=True, pdm=False, device="cpu")
     assert srv.process(make_input(np.random.default_rng(26), NPKT, BLOCK,
                                   len(IDS)))["wire_sum"].shape == (K, 4)
+
+
+@pytest.mark.parametrize("platform", [JPlatform.RP2350, JPlatform.RP2040])
+def test_hetero_wire_sum_leaves_out_padding(platform):
+    """HeteroServer, wire=True, emit='reduced': each bucket's wire_sum
+    [K, npairs] is the fold of its own real streams' words (emit='full',
+    caller order), segment after segment; the bucket's padding lanes,
+    copies of one of its streams, are left out."""
+    ids = np.array([2, 0, 1, 0, 2, 2, 1, 0])        # bucket 1 is padded
+    jcfgs = _cfgs(platform=platform)
+    for c in jcfgs:
+        c.hardware.output_types = [0, 1, 0, 0]
+    cfgs = [_convert(c) for c in jcfgs]
+    srv = {emit: HeteroServer(cfgs, ids, block_size=BLOCK, emit=emit,
+                              wire=True, pdm=False, device="cpu")
+           for emit in ("full", "reduced")}
+    assert srv["reduced"].padding_waste > 0
+    rng = np.random.default_rng(26)
+    for seg in range(2):
+        x = make_input(rng, NPKT, BLOCK, len(ids))
+        full = srv["full"].process(x)
+        got = _np(srv["reduced"].process(x)["wire_sum"])
+        npairs = srv["full"].static.n_spdif
+        assert got.shape == (K, npairs) and f"wire{npairs - 1}" in full
+        for k in range(K):
+            for pair in range(npairs):
+                words = _np(full[f"wire{pair}"])[..., ids == k]
+                assert int(got[k, pair]) == int(
+                    words.view(np.uint32).sum(dtype=np.uint32)), (seg, k,
+                                                                  pair)
 
 
 class _OpCount(TorchDispatchMode):

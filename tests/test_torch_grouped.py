@@ -25,6 +25,7 @@ from dspi_tpu import EqBand, FilterType, Platform as JPlatform
 from dspi_tpu.chain import GroupedEngine as JGrouped
 from dspi_tpu.chain.grouped import HeteroServer as JHetero
 from dspi_tpu_torch.chain import GroupedEngine, HeteroServer
+from dspi_tpu_torch.chain.pack import ChainParams
 
 from test_torch_multi import assert_state_matches_jax
 from test_torch_pack import _convert
@@ -146,6 +147,32 @@ def test_update_group_touches_only_its_group():
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[2], want[2])
     assert np.abs(got[1]).sum() < np.abs(want[1]).sum()
+
+
+@pytest.mark.parametrize("layout", ["flat", "vmap"])
+def test_load_numpy_then_update_group_keeps_other_groups(layout):
+    """load_numpy replaces every group's params (here the construction's
+    quiet ones by another engine's); a later update_group rebuilds group 1
+    only, so the other groups keep what was loaded: params and outputs
+    equal those of the engine the params came from, after the same
+    update."""
+    cfgs = [_convert(c) for c in _cfgs()]
+    kw = dict(streams_per_group=G, block_size=BLOCK, emit="full",
+              layout=layout, pdm=False, device="cpu")
+    src = GroupedEngine(cfgs, **kw)
+    eng = GroupedEngine([_quiet(c) for c in cfgs], **kw)
+    eng.load_numpy(*src.to_numpy())
+    new = _quiet(cfgs[1])
+    new.master_volume_db = -12.0
+    for e in (src, eng):
+        e.update_group(1, new)
+    for f, a, b in zip(ChainParams._fields, eng.to_numpy()[0],
+                       src.to_numpy()[0]):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    x = _inputs(12, None, K * G, groups=K)[0]
+    a, b = eng.process(x), src.process(x)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 @pytest.mark.parametrize("ids,width", [
