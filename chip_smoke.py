@@ -83,15 +83,35 @@ Phases (each prints one line; any failure exits non-zero):
      segments) and the float engine at 24-bit input: out/s24 <= 1e-6
      relative RMS, PDM words equal up to the first differing modulator
      input
- 14. the PDM kernel's calls at full length (the two timed in phase 3 and
-     the one of each path in phases 6, 8, 10 and 12) against the plain
-     version on the CPU over the first and the last 64 lanes of each, all
-     lanes of one segment length in one plain call (its time goes by
-     samples, not lanes): every word and state word equal
- 15. one JSON line {"kernels": [...]} for every kernel of the port and each
+ 14. the serving entry point (dspi_tpu_torch.serve, examples/serve.py's
+     twin) at full width, as a user runs it: serve_chained at 16384
+     streams, batches of 8 chained segments of 32 packets (device wire
+     words, one readback a batch), fed s16 payload words deframed on the
+     card and packed s24 bytes deframed on the host (native/dspi_host.cpp
+     built into dspi_tpu_torch/_build/); serve_hetero over 8 configs fed
+     s16 payload words; 5 batches each (a warm-up, then 4 read) with the
+     mid-run commits.  The entry point prints each batch (wall, RTF, each
+     stream's real-time ratio, upload, launches, starvations); this
+     script prints each run's summary and peak memory.  Fails unless
+     every segment launched the PDM kernel exactly once and nothing else,
+     and the starvation counters equal the firmware's count of the feed
+     gaps over a batch's audio time; starvations themselves do not fail
+ 15. runner card vs CPU: a ChainedRunner fed payloads through
+     pre=make_pre, 8 streams, 3 segments, 16- and 24-bit: the RP2040
+     chain's folds, peaks, clips and every state word equal; the RP2350
+     chain's clips equal, peaks within 1 LSB, float state within 1e-6
+     relative RMS (the leveller's envelope and gain within 1e-5, their
+     budget against the golden model)
+ 16. the PDM kernel's calls at full length (the two timed in phase 3, the
+     one of each path in phases 6, 8, 10 and 12 and the first of phase
+     14) against the plain version on the CPU over the first and the last
+     64 lanes of each, all lanes of one segment length in one plain call
+     (its time goes by samples, not lanes): every word and state word
+     equal
+ 17. one JSON line {"kernels": [...]} for every kernel of the port and each
      mode of the cascade kernel, with every path's segment time, RTF and
-     peak memory
- 16. last line: {"ok": true, "device": {...}}
+     peak memory, and the serving cells
+ 18. last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports nothing of JAX or of the JAX package.
@@ -1293,6 +1313,192 @@ def phase_new_paths_card_vs_cpu(dev) -> None:
           "word equal", flush=True)
 
 
+SERVE_BATCHES = 5          # the entry point's warm-up batch, then 4 read
+# (cell, entry point, its options): examples/serve.py's modes at full width
+SERVE_CELLS = (("serve_chained", "serve_chained", {"framed": "device"}),
+               ("serve_chained_s24_host", "serve_chained",
+                {"framed": "host", "bits": 24}),
+               ("serve_hetero", "serve_hetero", {"framed": "device"}))
+
+
+def phase_serving(card: str) -> dict:
+    """The serving entry point (dspi_tpu_torch.serve) at full width, as a
+    user runs it: serve_chained at 16384 streams, 8 chained segments of
+    32 packets a batch, device wire words, fed s16 payload words deframed
+    on the card and packed s24 bytes deframed on the host; serve_hetero
+    over 8 configs fed s16 payload words.  SERVE_BATCHES batches each,
+    with the mid-run commits; launch counts set to 0 just before each run
+    and read just after.  Fails unless every segment launched the PDM
+    kernel exactly once and nothing else, and the starvation counters are
+    the firmware's count of the feed gaps that exceeded a batch's audio
+    time (n_slots a gap, none while a preset operation held the mute);
+    starvations themselves do not fail.  The first PDM call of the first
+    run is held against the plain version in phase_pdm_plain."""
+    from dspi_tpu_torch import serve
+    from dspi_tpu_torch.kernels import LAUNCHES, pdm_cuda
+
+    cells = {}
+    for label, entry, kw in SERVE_CELLS:
+        first = []
+        saved = pdm_cuda.pdm_words
+        if label == SERVE_CELLS[0][0]:        # every call has its shape
+            def record(x, s16, _fn=saved):
+                got = _fn(x, s16)
+                if not first:
+                    first.append((x, s16, got))
+                return got
+            pdm_cuda.pdm_words = record
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in list(LAUNCHES):
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        try:
+            r = getattr(serve, entry)(STREAMS, SERVE_BATCHES, **kw)
+        finally:
+            pdm_cuda.pdm_words = saved
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {k: n for k, n in LAUNCHES.items() if n}
+        depth = r["depth"]
+        if launches != {"pdm": depth * SERVE_BATCHES}:
+            fail(f"{label} launched {launches} in {SERVE_BATCHES} batches "
+                 f"of {depth} segments, not one PDM launch a segment")
+        for b in r["batches"]:
+            if b["launches"] != {"pdm": depth}:
+                fail(f"{label} batch {b['batch']} launched {b['launches']}")
+        st = r["stats"]
+        want = min(st.n_slots, 4) * (r["gaps_over_deadline"]
+                                     - st.starvations_suppressed)
+        if st.starvations_total != want or r["starvations"] != want:
+            fail(f"{label}: {st.starvations_total} starvations counted "
+                 f"(GET_STATUS {r['starvations']}), the feed gaps give "
+                 f"{want}")
+        if first:
+            x, s16, got = first[0]
+            hold_pdm(f"{label} {list(x.shape)}", x, s16, got)
+        read = r["batches"][1:]
+        walls = [b["wall_s"] for b in read]
+        mean_wall = sum(walls) / len(walls)
+        up = [b["deframe_ms"] + b["upload_ms"] for b in read]
+        cell = {
+            "entry": f"{entry}({STREAMS}, {SERVE_BATCHES}, {kw})",
+            "batch_audio_s": r["batch_audio_s"], "depth": depth,
+            "npkt": r["npkt"], "walls_ms": [1e3 * w for w in walls],
+            "mean_wall_ms": 1e3 * mean_wall,
+            "rtf": STREAMS * r["batch_audio_s"] / mean_wall,
+            "stream_rt": r["batch_audio_s"] / mean_wall,
+            "deframe_ms": [b["deframe_ms"] for b in read],
+            "upload_ms": [b["upload_ms"] for b in read],
+            "upload_share": sum(up) / 1e3 / sum(walls),
+            "upload_bytes": read[-1]["upload_bytes"],
+            "starvations": st.starvations_total,
+            "starvations_per_batch": st.starvations_total / (SERVE_BATCHES
+                                                             - 1),
+            "gaps_over_deadline": r["gaps_over_deadline"],
+            "suppressed": st.starvations_suppressed,
+            "launches": launches, "setup_s": r["setup_s"],
+            "run_s": total_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"{label}: {STREAMS} streams, {depth} x {r['npkt']} packets a "
+              f"batch ({1e3 * r['batch_audio_s']:.0f} ms of audio), "
+              f"walls {[round(w, 1) for w in cell['walls_ms']]} ms, mean "
+              f"{cell['mean_wall_ms']:.1f} ms: RTF {cell['rtf']:.1f}x, "
+              f"{cell['stream_rt']:.4f}x real time a stream; host deframe "
+              f"{[round(u, 1) for u in cell['deframe_ms']]} ms, upload "
+              f"{[round(u, 1) for u in cell['upload_ms']]} ms of "
+              f"{cell['upload_bytes']} B (together "
+              f"{100 * cell['upload_share']:.1f}% of the walls); "
+              f"starvations {st.starvations_total} "
+              f"({cell['starvations_per_batch']:.1f} a batch, "
+              f"{r['gaps_over_deadline']} gaps over the deadline, "
+              f"{st.starvations_suppressed} suppressed); launches "
+              f"{launches}; peak memory {cell['peak_gb']:.2f} GB; setup "
+              f"{r['setup_s']:.1f} s, run {total_s:.1f} s; card {card}",
+              flush=True)
+        cells[label] = cell
+    return cells
+
+
+# the float leveller's envelope and gain state: held to 1e-5 relative RMS,
+# its budget against the golden model (tests/test_torch_float_leveller.py);
+# the envelope's long recursion carries the matrix products' rounding on
+LEVELLER_STATE = ("lev_env", "lev_gain_db", "lev_gain", "lev_gain_prev")
+
+
+def phase_runner_card_vs_cpu(dev) -> None:
+    """A ChainedRunner fed payloads through pre=make_pre (8 streams, 3
+    chained segments of 4 packets, device wire words, PDM) on the card and
+    on the CPU, at 16 and 24 bits (payload words over the full range): on
+    the RP2040 chain the folds, peaks, clip flags and every state word
+    equal; on the RP2350 chain the clip flags equal, the peaks within 1
+    LSB, the float state within 1e-6 relative RMS and the leveller's
+    envelope and gain within 1e-5 (LEVELLER_STATE)."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.kernels.deframe import make_pre
+    from dspi_tpu_torch.runtime.executor import ChainedRunner
+
+    B, depth, npkt = 8, 3, 4            # 12 ms: past the 10 ms lookahead
+    rng = np.random.default_rng(71)
+    t0 = time.perf_counter()
+    text = []
+    for plat in (Platform.RP2040, Platform.RP2350):
+        for bits in (16, 24):
+            if bits == 16:
+                fed = rng.integers(-2**31, 2**31,
+                                   size=(depth, B, npkt * BLOCK),
+                                   dtype=np.int64).astype(np.int32)
+            else:
+                fed = rng.integers(0, 256, size=(depth, B, npkt * BLOCK * 6),
+                                   dtype=np.int64).astype(np.uint8)
+            runs = []
+            for d in (dev, "cpu"):
+                eng = Engine(full_chain_config(plat, RATE), n_streams=B,
+                             block_size=BLOCK, emit="reduced", wire=True,
+                             pdm_fade=False, bit_depth=bits, device=d)
+                r = ChainedRunner(eng, depth=depth,
+                                  pre=make_pre(npkt, BLOCK, bits))
+                out = r.feed(fed)
+                r.drain()
+                runs.append((out, eng.state))
+            ((fg, pg, cg), sg), ((fc, pc, cc), sc) = runs
+            label = f"runner card vs CPU ({plat.name}, {bits}-bit)"
+            if not pc[2:].ne(0).any():
+                fail(f"{label}: silent outputs")
+            if plat is Platform.RP2040:
+                for what, g, c in (("folds", fg, fc), ("peaks", pg, pc),
+                                   ("clips", cg, cc)):
+                    if not torch.equal(g.cpu(), c):
+                        fail(f"{label}: {what} differ")
+                _same_state(label, sg, sc)
+                text.append(f"{plat.name} {bits}-bit equal")
+                continue
+            if (pg.cpu() - pc).abs().max() > 1:
+                fail(f"{label}: peaks differ by more than 1 LSB")
+            if not torch.equal(cg.cpu(), cc):
+                fail(f"{label}: clip flags differ")
+            worst = {"lev": 0.0, "rest": 0.0}
+            for f, g, c in zip(sc._fields, sg, sc):
+                if c is not None and c.is_floating_point():
+                    err = rel_rms(g.cpu().numpy(), c.numpy())
+                    part = "lev" if f in LEVELLER_STATE else "rest"
+                    worst[part] = max(worst[part], err)
+                    if err > (1e-5 if part == "lev" else 1e-6):
+                        fail(f"{label}: state {f} relative RMS {err:.3e}")
+            fold_err = float(((fg.cpu() - fc).abs() / fc.abs()).max())
+            text.append(f"{plat.name} {bits}-bit float state "
+                        f"{worst['rest']:.3e}, leveller envelope and gain "
+                        f"{worst['lev']:.3e}, folds {fold_err:.2e} apart")
+    print(f"runner card vs CPU ({time.perf_counter() - t0:.1f} s): "
+          f"ChainedRunner, pre=make_pre, {B} streams x {depth} segments of "
+          f"{npkt}x{BLOCK}: {'; '.join(text)} (RP2040: folds, peaks, clips "
+          f"and every state word; RP2350: clips equal, peaks within 1 LSB, "
+          f"float state <= 1e-6, the leveller's envelope and gain <= 1e-5)",
+          flush=True)
+
+
 def phase_pdm_plain() -> dict:
     """Every PDM call held by hold_pdm against the plain version on the
     CPU, word for word: the held lanes of all calls of one segment length
@@ -1352,6 +1558,8 @@ def main() -> None:
     f_441 = phase_float_44k1(dev, card)
     f_het = phase_float_hetero(dev, card)
     phase_float_paths_card_vs_cpu(dev)
+    serving = phase_serving(card)
+    phase_runner_card_vs_cpu(dev)
     pdm_row.update(phase_pdm_plain())
 
     # launches: each path's counted run (SEGMENTS segments each; the Q28
@@ -1363,7 +1571,8 @@ def main() -> None:
              "rp2040_q28_44k1": s441["launches"],
              "rp2350_float_wire": f_wire["launches"],
              "rp2350_float_44k1": f_441["launches"],
-             "rp2350_float_hetero": f_het["launches"]}
+             "rp2350_float_hetero": f_het["launches"],
+             **{label: cell["launches"] for label, cell in serving.items()}}
     # the cascade kernel's scalar-coefficient, uniform-packet mode: its
     # launches less the other modes' (no path combines lane_cf and a
     # schedule)
@@ -1413,6 +1622,7 @@ def main() -> None:
                      ("rp2350_float_wire", f_wire),
                      ("rp2350_float_44k1", f_441),
                      ("rp2350_float_hetero", f_het))}
+    pdm_row["serving"] = serving
     pdm_row["wire_stage"] = {k: f_wire[k] for k in (
         "wire_ms", "wire_segment_ms", "wire_share", "fused_wire_bound_ms")}
     xf_row.update(ms=xf_call["ms"], bound_ms=xf_call["bound_ms"],

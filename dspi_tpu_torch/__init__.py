@@ -9,15 +9,24 @@ RP2040 Q28 chain, both at 44.1/48/96 kHz, with the device-side wire words
 and grouped/hetero serving (``chain.GroupedEngine``,
 ``chain.HeteroServer``), on the Q28 chain also with per-stream
 parameters, and the delta-sigma PDM modulator, the Q28 EQ cascades and the
-Q28 crossfeed as hand-written CUDA kernels.
+Q28 crossfeed as hand-written CUDA kernels.  Its serving surface is the
+JAX package's: the runners, the vendor control plane and the entry
+points ``python -m dspi_tpu_torch.serve`` and ``python -m
+dspi_tpu_torch.console``.
 
 Layout:
   core/     numerics substrate (constants, exact Q28/Q15 and float math)
   params/   control-plane model + coefficient design (NumPy)
   chain/    pack + the batched pipeline + the Engine + grouped serving
-  kernels/  CUDA kernels (csrc/), their wrappers and plain versions, and
-            the wire encoders
+  kernels/  CUDA kernels (csrc/), their wrappers and plain versions, the
+            wire encoders and the on-device USB deframe
+  runtime/  the runners, the stream-axis split over devices, telemetry,
+            the host wire encoder
+  control/  the vendor-protocol device (VirtualDSPi) and its envelope
+  io/       preset-slot, directory and bulk codecs, the preset store
+  native    ctypes binding of native/dspi_host.cpp's host data plane
   configs   the headline device configuration and its serving mix
+  serve, console   the entry points
 """
 
 from .core.constants import FilterType, Platform

@@ -288,8 +288,8 @@ class HeteroServer:
     def __init__(self, cfgs, stream_config_ids, lane_multiple: int = 1,
                  **kw):
         """``lane_multiple``: force the bucket width to a multiple of this
-        (the JAX package passes its mesh's device count; the port's mesh
-        is ROADMAP.md item 12).  ``kw`` goes to ``GroupedEngine``."""
+        (a mesh's size, so that ``runtime.executor.shard_engine`` can
+        split every bucket evenly).  ``kw`` goes to ``GroupedEngine``."""
         ids = np.asarray(stream_config_ids, np.int64)
         K = len(cfgs)
         if ids.min() < 0 or ids.max() >= K:
@@ -328,6 +328,10 @@ class HeteroServer:
     @property
     def static(self):
         return self.grouped.static
+
+    @property
+    def device(self):
+        return self.grouped.device
 
     # params/state live on the wrapped GroupedEngine; proxied so a runner
     # drives a HeteroServer exactly like an Engine

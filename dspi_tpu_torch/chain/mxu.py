@@ -631,13 +631,23 @@ def stack_groups(static, per_group: list) -> Blocks:
 
 def set_group(static, blocks: Blocks, k: int, new: Blocks,
               group_mix: list) -> Blocks:
-    """Write group ``k``'s matrices ``new`` into grouped ``blocks`` in
-    place; ``group_mix``: every group's ``mix``, group k's new one
-    included.  Returns the Blocks with the mix flags of all groups."""
+    """Grouped ``blocks`` with group ``k``'s matrices replaced by
+    ``new``'s, in new tensors: ``blocks`` itself is left as it was, so
+    that a runner that holds it keeps serving the old coefficients until
+    it is told to take the new ones.  ``group_mix``: every group's
+    ``mix``, group k's new one included."""
     ax = _group_axis(static)
-    for dst, src in ((blocks.a[0], new.a[0]), (blocks.a[1], new.a[1]),
-                     (blocks.xf, new.xf), (blocks.out, new.out)):
-        if dst is not None:
-            for d, s_ in zip(dst, src):
-                d.select(ax, k).copy_(s_)
-    return blocks._replace(mix=_mix_any(group_mix))
+
+    def put(dst, src):
+        if dst is None:
+            return None
+        outs = []
+        for d, s_ in zip(dst, src):
+            d = d.clone()
+            d.select(ax, k).copy_(s_)
+            outs.append(d)
+        return Split(*outs)
+
+    return Blocks((put(blocks.a[0], new.a[0]), put(blocks.a[1], new.a[1])),
+                  put(blocks.xf, new.xf), put(blocks.out, new.out),
+                  _mix_any(group_mix))

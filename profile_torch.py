@@ -2,7 +2,8 @@
 """Where one full-width segment of the port's main path spends its time.
 
     python3 profile_torch.py [rp2350|rp2040|rp2040_hetero|rp2040_44k1|
-                              rp2350_wire|rp2350_44k1|rp2350_hetero]
+                              rp2350_wire|rp2350_44k1|rp2350_hetero|
+                              rp2350_serve]
 
 Runs one full-width path on one CUDA card (emit "reduced", PDM on): the
 headline chain of the platform (default rp2350: the float chain; rp2040:
@@ -18,7 +19,12 @@ their summed time, the device's idle share (1 - kernel time / wall), and
 the ops with the most device time; writes the full table to
 chiprun_out/profile_<path>.txt.  Then times each stage of one more
 segment (synchronized before and after each call of a stage, so stages
-cannot overlap and the sum is slower than an unwrapped segment).  With
+cannot overlap and the sum is slower than an unwrapped segment).
+rp2350_serve traces one batch of the serving entry point instead
+(dspi_tpu_torch.serve's serve_chained --framed-dev: the wire engine under
+a ChainedRunner, 8 chained segments of 32 packets deframed on the card
+from uploaded s16 payload words, one readback): its upload, kernels and
+idle share; it times no stages.  With
 wire words (rp2350_wire), it then traces the wire stage alone on one
 segment's arguments: its kernels and their device time, and the bytes its
 torch ops move, in passes of a channel pair's [2, T, B] int32 plane.
@@ -34,6 +40,7 @@ bounds assume; the SASS goes to chiprun_out/<lib>_sass.txt.
 
 from __future__ import annotations
 
+import functools
 import subprocess
 import sys
 import time
@@ -46,7 +53,8 @@ from torch.autograd import DeviceType
 STREAMS, PACKETS, BLOCK = 16384, 128, 48
 SCHED441 = ((44,) * 9 + (45,)) * 13
 PATHS = ("rp2350", "rp2040", "rp2040_hetero", "rp2040_44k1", "rp2350_wire",
-         "rp2350_44k1", "rp2350_hetero")
+         "rp2350_44k1", "rp2350_hetero", "rp2350_serve")
+SERVE_DEPTH, SERVE_PACKETS = 8, 32
 # (library, a piece of the kernel's mangled name, label, the memory op
 # that counts the loop's samples, its count a sample): the cascade
 # kernel's instantiations <NB, LOUD, ENV> that the paths launch (the
@@ -242,6 +250,32 @@ def _path(path, dev):
     return eng, x
 
 
+def _serve_batch(dev):
+    """(run one batch, the batch's audio-seconds): serve_chained's
+    --framed-dev engine and runner at full width, fed s16 payload words
+    that are uploaded each batch."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.kernels.deframe import make_pre
+    from dspi_tpu_torch.runtime.executor import ChainedRunner
+
+    eng = Engine(full_chain_config(Platform.RP2350), n_streams=STREAMS,
+                 block_size=BLOCK, emit="reduced", pdm=True, pdm_fade=False,
+                 wire=True, device=dev)
+    runner = ChainedRunner(eng, depth=SERVE_DEPTH,
+                           pre=make_pre(SERVE_PACKETS, BLOCK))
+    words = np.random.default_rng(0).integers(
+        -2**31, 2**31, size=(SERVE_DEPTH, STREAMS, SERVE_PACKETS * BLOCK),
+        dtype=np.int64).astype(np.int32)
+
+    def batch():
+        runner.feed(torch.from_numpy(words).to(dev))
+        runner.drain()
+
+    return batch, SERVE_DEPTH * SERVE_PACKETS * BLOCK / 48000.0
+
+
 def main() -> None:
     path = sys.argv[1] if len(sys.argv) > 1 else "rp2350"
     if path not in PATHS:
@@ -254,14 +288,23 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    eng, x = _path(path, dev)
-    for i in range(2):
-        eng.process(x ^ i)
+    if path == "rp2350_serve":
+        run, audio_s = _serve_batch(dev)
+        warm = (run, run)
+        what = (f"batch of {SERVE_DEPTH} x {SERVE_PACKETS} packets "
+                f"({audio_s * 1e3:.0f} ms of audio a stream)")
+    else:
+        eng, x = _path(path, dev)
+        warm = [functools.partial(eng.process, x ^ i) for i in range(2)]
+        run = functools.partial(eng.process, x ^ 2)
+        what = f"segment {tuple(x.shape[:-1])}"
+    for fn in warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.process(x ^ 2)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -269,17 +312,23 @@ def main() -> None:
                and not e.is_user_annotation]
     dev_us = sum(e.self_device_time_total for e in kernels)
     n_kernels = sum(e.count for e in kernels)
+    copies = [e for e in kernels if "memcpy" in e.key.lower()]
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / f"profile_{path}.txt").write_text(
         f"card: {card}\nwall {wall * 1e3:.3f} ms\n{table}\n")
     print(f"card: {card}")
-    print(f"{path} segment {STREAMS} streams x {tuple(x.shape[:-1])}: wall "
-          f"{wall * 1e3:.3f} ms (profiled), {n_kernels} kernels, device "
-          f"kernel time {dev_us / 1e3:.3f} ms, idle share "
-          f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
+    print(f"{path} {what}, {STREAMS} streams: wall {wall * 1e3:.3f} ms "
+          f"(profiled), {n_kernels} kernels, device kernel time "
+          f"{dev_us / 1e3:.3f} ms, idle share "
+          f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}; of them copies "
+          f"{sum(e.count for e in copies)}, "
+          f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
+    if path == "rp2350_serve":
+        loop_ops(out)
+        return
     for label, ms in stage_times(eng, x ^ 3, path).items():
         print(f"stage {ms:10.3f} ms  {label}")
     if eng.static.wire:

@@ -183,3 +183,67 @@ def test_xf_q28_kernel_per_lane_equals_plain(T, B):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bit_depth", [16, 24])
+def test_deframe_on_card_equals_cpu(bit_depth):
+    """The on-device deframe on the card: the same planes as on the CPU,
+    on the payload's device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch.kernels.deframe import make_pre
+
+    rng = np.random.default_rng(5 + bit_depth)
+    B, npkt, block = 4100, 3, 48
+    if bit_depth == 16:
+        fed = rng.integers(-2**31, 2**31, size=(B, npkt * block),
+                           dtype=np.int64).astype(np.int32)
+    else:
+        fed = rng.integers(0, 256, size=(B, npkt * block * 6),
+                           dtype=np.int64).astype(np.uint8)
+    pre = make_pre(npkt, block, bit_depth)
+    want = pre(torch.from_numpy(fed))
+    got = pre(torch.from_numpy(fed).cuda())
+    assert got.is_cuda and got.shape == (npkt, 2, block, B)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_chained_runner_on_card_equals_cpu():
+    """A ChainedRunner on the Q28 chain fed payload words (pre=make_pre),
+    on the card and on the CPU: folds, peaks, clips and every state word
+    equal; the batch in flight is waited for on its event."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.kernels.deframe import make_pre
+    from dspi_tpu_torch.runtime.executor import ChainedRunner
+
+    rng = np.random.default_rng(77)
+    B, depth, npkt = 16, 2, 6           # 12 ms: past the 10 ms lookahead
+    batches = [rng.integers(-2**31, 2**31, size=(depth, B, npkt * 48),
+                            dtype=np.int64).astype(np.int32)
+               for _ in range(2)]
+    results = []
+    for dev in ("cuda", "cpu"):
+        eng = Engine(full_chain_config(Platform.RP2040), n_streams=B,
+                     emit="reduced", wire=True, device=dev)
+        r = ChainedRunner(eng, depth=depth, pre=make_pre(npkt, 48))
+        first = r.feed(batches[0])
+        done = r.feed(batches[1])
+        assert done is first
+        if dev == "cuda":
+            assert r._inflight[0][1] is not None    # an event a batch
+        last = r.drain()
+        results.append((first, last, eng.state))
+    (f0, l0, s0), (f1, l1, s1) = results
+    assert l1[1][2:].ne(0).any(), "the outputs are silent"
+    for a, b in zip(f0 + l0, f1 + l1):
+        assert torch.equal(a.cpu(), b)
+    for f, a, b in zip(s1._fields, s0, s1):
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert torch.equal(a.cpu(), b), f

@@ -141,15 +141,24 @@ def test_engine_without_device_needs_a_card():
 
 
 def test_port_imports_no_jax():
-    """Importing the port (and building an engine on the CPU) loads
-    neither JAX nor any module of the JAX package; no source file of the
-    port names either in an import."""
+    """Importing the port (every module: the chain, the kernels, the
+    control plane, io, the runners, the native binding and the entry
+    points) and building an engine on the CPU loads neither JAX nor any
+    module of the JAX package; no source file of the port names either in
+    an import."""
     code = (
         "import sys\n"
         "import dspi_tpu_torch, dspi_tpu_torch.chain\n"
         "import dspi_tpu_torch.kernels.pdm_cuda, dspi_tpu_torch.configs\n"
         "import dspi_tpu_torch.kernels.eq_cuda, dspi_tpu_torch.kernels.xf_cuda\n"
-        "import dspi_tpu_torch.kernels.eq\n"
+        "import dspi_tpu_torch.kernels.eq, dspi_tpu_torch.kernels.deframe\n"
+        "import dspi_tpu_torch.control.device, dspi_tpu_torch.control.feedback\n"
+        "import dspi_tpu_torch.io.presets, dspi_tpu_torch.io.wire\n"
+        "import dspi_tpu_torch.runtime.executor\n"
+        "import dspi_tpu_torch.runtime.telemetry\n"
+        "import dspi_tpu_torch.runtime.wire_out, dspi_tpu_torch.native\n"
+        "import dspi_tpu_torch.serve, dspi_tpu_torch.console\n"
+        "dspi_tpu_torch.native.crc32(b'x')\n"
         "from dspi_tpu_torch.chain import Engine\n"
         "from dspi_tpu_torch.configs import full_chain_config\n"
         "from dspi_tpu_torch import Platform\n"
