@@ -28,7 +28,17 @@ Phases (each prints one line; any failure exits non-zero):
      schedule together; lane_cf with columns uniform over buckets of 160
      lanes (the HeteroServer's layout)
   5. Q28 crossfeed kernel vs its plain version, the same way, with [3] and
-     per-lane [3, B] coefficients
+     per-lane [3, B] coefficients.  Then the float scan lowering's two
+     kernels vs their plain versions on the card, bit for bit (every float
+     operation of both rounds on its own): the float cascade kernel on
+     4100 streams, the master call's shape (2 cascades, loudness + 10
+     bands + envelope, the headline's band kinds), the output call's (9
+     cascades, 10 bands) and band kinds that differ across cascades (SKIP
+     rows among them), in its scalar, per-lane, 44/45-schedule and
+     per-lane + 1-sample-packet-schedule modes, with the envelope's
+     packet-end flush firing; the float crossfeed over three chained
+     segments, the last with per-lane coefficients.  A mismatch prints
+     the largest gap and fails
   6. the float main path at full width: Engine on the headline RP2350
      chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
      samples with state carried and a fresh input each (x ^ i); launch
@@ -83,6 +93,17 @@ Phases (each prints one line; any failure exits non-zero):
      segments) and the float engine at 24-bit input: out/s24 <= 1e-6
      relative RMS, PDM words equal up to the first differing modulator
      input
+ 13b. the float scan lowering at full width, each as phase 6: the headline
+     RP2350 chain with mxu=False (float_scan; launches a segment exactly
+     2 float cascade, 1 float crossfeed, 1 PDM) and a HeteroServer over 8
+     RP2350 configs with mxu=False, the flat per-lane layout over 17,408
+     lanes (float_scan_hetero; both cascade calls per lane); each kernel
+     call of one more segment timed alone beside its bound (the pinned
+     float operation counts, F32_BAND_OPS and XF_F32_OPS, or the bytes)
+     and held bit for bit against the plain version on the CPU over 128
+     of its streams.  Then card vs CPU on the scan engine at 8 streams,
+     48 kHz (3 segments of 4 packets) and 44.1 kHz (2 segments of 441
+     samples): float_close
  14. the serving entry point (dspi_tpu_torch.serve, examples/serve.py's
      twin) at full width, as a user runs it: serve_chained at 16384
      streams, batches of 8 chained segments of 32 packets (device wire
@@ -103,14 +124,14 @@ Phases (each prints one line; any failure exits non-zero):
      relative RMS (the leveller's envelope and gain within 1e-5, their
      budget against the golden model)
  16. the PDM kernel's calls at full length (the two timed in phase 3, the
-     one of each path in phases 6, 8, 10 and 12 and the first of phase
-     14) against the plain version on the CPU over the first and the last
+     one of each path in phases 6, 8, 10, 12 and 13b and the first of
+     phase 14) against the plain version on the CPU over the first and the last
      64 lanes of each, all lanes of one segment length in one plain call
      (its time goes by samples, not lanes): every word and state word
      equal
  17. one JSON line {"kernels": [...]} for every kernel of the port and each
-     mode of the cascade kernel, with every path's segment time, RTF and
-     peak memory, and the serving cells
+     mode of the Q28 cascade kernel, with every path's segment time, RTF
+     and peak memory, and the serving cells
  18. last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -165,6 +186,23 @@ PDM_OPS = {"alu_only": 851.0, "arith": 1744.0}
 XF_OPS = {"alu_only": 25.5, "arith": 74.5}
 EQ_LANE_OPS = {(10, True, True): {"alu_only": 109.0, "arith": 361.0},
                (10, False, False): {"alu_only": 74.0, "arith": 270.0}}
+# The float scan lowering's kernels (eq_f32.cu, xf_f32.cu) are bound by
+# float32 issue or bytes: FP32_PER_SM_CLOCK float multiplies, adds and
+# subtracts a clock on each SM (4 x 32 FP32 lanes), at the card's maximum
+# SM clock.  Their operation counts a stream-sample are pinned from the
+# functions (kernels/eq_f32.py, kernels/xf_f32_cuda.py), every multiply,
+# add and subtract counted once, since none may fuse: by band kind (SKIP
+# 0, TDF2 9: 5 multiplies and 4 adds; an SVF's state 12, plus its output
+# mix: low-pass 0, high-pass 3, peaking 2, shelf 5), a loudness filter a
+# shelf's 17, the envelope 4 (3 multiplies, 1 add), the crossfeed 18.
+FP32_PER_SM_CLOCK = 128
+F32_BAND_OPS = {0: 0, 1: 9, 2: 12, 3: 15, 4: 14, 5: 17}
+F32_LOUD_OPS, F32_ENV_OPS, XF_F32_OPS = 17, 4, 18
+# the float cascade instances the scan paths launch, by call
+F32_INSTANCES = {"master": "cascade_kernelILi10ELb1ELb1ELb0EE",
+                 "output": "cascade_kernelILi10ELb0ELb0ELb0EE",
+                 "master per lane": "cascade_kernelILi10ELb1ELb1ELb1EE",
+                 "output per lane": "cascade_kernelILi10ELb0ELb0ELb1EE"}
 
 
 def fail(msg: str) -> None:
@@ -239,10 +277,10 @@ def sm_clocks_per_s() -> float:
     return sms * mhz * 1e6
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     """Build every kernel; print per source its kernel count, most
-    registers and spill bytes, and the registers of the cascade kernel's
-    instances that the paths launch."""
+    registers and spill bytes, and the registers of the cascade kernels'
+    instances that the paths launch; return that summary."""
     import re
 
     from dspi_tpu_torch.kernels import build
@@ -266,8 +304,13 @@ def phase_build() -> None:
                              "cascade_kernelILi10ELb0ELb0EE",
                              "lane_kernelILi10ELb1ELb1EE",
                              "lane_kernelILi10ELb0ELb0EE")}
+        if name == "eq_f32":
+            summary[name]["registers"] = {
+                label: next(n for f, n in regs.items() if inst in f)
+                for label, inst in F32_INSTANCES.items()}
     print(f"build: {time.perf_counter() - t0:.1f} s; "
           f"{summary or 'nothing (cached)'}", flush=True)
+    return summary
 
 
 def _pdm_lane_state(b: int, dev):
@@ -757,6 +800,173 @@ def phase_xf(dev) -> dict:
             "kernel_ms_at_plain_shape": kern_ms}
 
 
+def max_gap(u, v) -> float:
+    """The largest absolute difference of two tensors (NaN where a NaN
+    stands against a number)."""
+    d = (u.double() - v.double()).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _uniform(gen, lo, hi, shape, dev):
+    return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev,
+                                       dtype=torch.float64)
+
+
+def f32_rows(gen, shape, dev):
+    """[..., 11] float cascade coefficient rows of stable filters, as
+    tests/test_torch_cuda.py makes them: SVF columns from a tuning g and a
+    damping k (mix terms in +-1.5), TDF2 columns with b0..b2 in +-0.6 and
+    a conjugate pole pair inside radius 0.98."""
+    g = _uniform(gen, 0.02, 1.2, shape, dev)
+    k = _uniform(gen, 0.4, 2.0, shape, dev)
+    a1 = 1.0 / (1.0 + g * (g + k))
+    r = _uniform(gen, 0.5, 0.98, shape, dev)
+    th = _uniform(gen, 0.05, 3.0, shape, dev)
+    cols = ([a1, g * a1, g * g * a1]
+            + [_uniform(gen, -1.5, 1.5, shape, dev) for _ in range(3)]
+            + [_uniform(gen, -0.6, 0.6, shape, dev) for _ in range(3)]
+            + [-2 * r * torch.cos(th), r * r])
+    return torch.stack(cols, dim=-1).float()
+
+
+# (loudness, envelope, bands, cascades, kinds mixed across the cascades):
+# the float scan path's master call (2 cascades, loudness + 10 bands +
+# envelope) and output call (9 cascades, 10 bands), then band kinds that
+# differ across cascades, SKIP rows among them
+EQF_CASES = ((True, True, 10, 2, False), (False, False, 10, 9, False),
+             (True, True, 12, 4, True), (False, True, 0, 2, True),
+             (True, False, 5, 3, True))
+EQF_MODES = {"scalar": (False, None), "lane": (True, None),
+             "sched": (False, SCHED), "lane+sched": (True, SCHED1)}
+EQF_HEAD = (3, 4, 4, 5, 4, 4, 4, 1, 1, 1, 2, 5)   # the headline's kinds
+
+
+def _eqf_args(gen, G, T, B, nb, has_loud, has_env, lane, mixed, dev):
+    """Float cascade inputs on the card: per-cascade or per-lane rows,
+    bypass flags in every pair (lane by lane with ``lane``), a different
+    envelope alpha a cascade, and on cascade 0's first 4 lanes a silent
+    input and zero states under a 1e-31 envelope, so that the 1e-30
+    flush fires at a packet end."""
+    kinds = tuple(tuple((1, 2, 3, 4, 5, 0)[(g + j) % 6] if mixed
+                        else EQF_HEAD[j] for j in range(nb))
+                  for g in range(G))
+    nr = (2 if has_loud else 0) + nb
+    x = _uniform(gen, -1.0, 1.0, (G, T, B), dev).float()
+    s0 = _uniform(gen, -0.1, 0.1, (G, 2 * nr + has_env, B), dev).float()
+    if has_env:
+        s0[:, -1] = _uniform(gen, 0.0, 0.3, (G, B), dev).float()
+        x[0, :, :4] = 0.0
+        s0[0, :, :4] = 0.0
+        s0[0, -1, :4] = 1e-31
+    if lane:
+        cf = f32_rows(gen, (G, nr, B), dev).movedim(-1, 2).contiguous()
+        byp = (torch.rand((2, G, B), generator=gen, device=dev) < 0.5)
+        a = _uniform(gen, 0.99, 0.9999, (G, B), dev).float()
+    else:
+        cf = f32_rows(gen, (G, nr), dev)
+        gi = torch.arange(G, device=dev)
+        byp = torch.stack([gi % 2, gi // 2 % 2])
+        a = torch.linspace(0.995, 0.9999, G, device=dev)
+    scal = torch.stack([byp[0].float(), byp[1].float(), a, 1.0 - a], dim=1)
+    return (x, cf, s0, scal.contiguous()), kinds
+
+
+def phase_eq_f32(dev) -> dict:
+    """Float cascade kernel vs its plain version on the card, bit for bit,
+    every case of EQF_CASES in every mode of EQF_MODES; returns the
+    (plain ms, kernel ms) of the master and output cases per mode."""
+    from dspi_tpu_torch.kernels.eq_f32 import f32_cascades_plain
+    from dspi_tpu_torch.kernels.eq_f32_cuda import f32_cascades
+
+    B = 4100
+    gen = torch.Generator(device=dev).manual_seed(61)
+    times = {}
+    for mode, (lane, sched) in EQF_MODES.items():
+        T = sum(sched) if sched else 2 * BLOCK
+        for has_loud, has_env, nb, G, mixed in EQF_CASES:
+            a, kinds = _eqf_args(gen, G, T, B, nb, has_loud, has_env, lane,
+                                 mixed, dev)
+            kw = dict(kinds=kinds, has_loud=has_loud, has_env=has_env,
+                      tc=BLOCK, sched=sched)
+            got = f32_cascades(*a, **kw)           # loads the kernel
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            want = f32_cascades_plain(*a, **kw)
+            ev[1].record()
+            ev[2].record()
+            f32_cascades(*a, **kw)
+            ev[3].record()
+            torch.cuda.synchronize()
+            if not mixed:
+                times[f"{mode} G={G}"] = (ev[0].elapsed_time(ev[1]),
+                                          ev[2].elapsed_time(ev[3]))
+            for name, u, v in zip(("y", "env", "state"), got, want):
+                if (u is None) != (v is None) or (
+                        u is not None and not torch.equal(u, v)):
+                    gap = "" if u is None or v is None else max_gap(u, v)
+                    fail(f"float cascade kernel != plain version ({name}) "
+                         f"in mode {mode} for loudness={has_loud} "
+                         f"envelope={has_env} nb={nb} G={G}: largest gap "
+                         f"{gap}")
+            if has_env and not bool((want[1][0, :, :4] == 0).all()):
+                fail("float cascade phase: the envelope flush never fired")
+    print(f"eq_f32: kernel == plain bit for bit on {B} streams in modes "
+          f"{list(EQF_MODES)} (schedules {SCHED}, {SCHED1}) for every case "
+          f"of {list(EQF_CASES)}; plain / kernel ms: "
+          f"{ {m: [round(v, 3) for v in t] for m, t in times.items()} }",
+          flush=True)
+    return times
+
+
+def phase_xf_f32(dev) -> dict:
+    """Float crossfeed kernel vs its plain version on the card, bit for
+    bit, over three chained segments, the last with per-lane
+    coefficients."""
+    from dspi_tpu_torch.kernels.xf_f32_cuda import xf_f32, xf_f32_plain
+
+    T, B = 2 * BLOCK, 4100
+    gen = torch.Generator(device=dev).manual_seed(67)
+    s_plain = s_kern = _uniform(gen, -0.3, 0.3, (4, B), dev).float()
+    plain_ms = kern_ms = 0.0
+    for seg, coef in enumerate((
+            [0.1184, 0.8816, -0.6421],                          # BS2B-like
+            _uniform(gen, -0.9, 0.9, (3,), dev).tolist(),
+            torch.stack([_uniform(gen, 0.01, 0.3, (B,), dev),    # per lane
+                         _uniform(gen, 0.6, 0.99, (B,), dev),
+                         _uniform(gen, -0.9, -0.1, (B,), dev)]))):
+        coef = torch.as_tensor(coef, dtype=torch.float32,
+                               device=dev).contiguous()
+        l, r = (_uniform(gen, -1.0, 1.0, (T, B), dev).float()
+                for _ in range(2))
+        got = xf_f32(l, r, coef, s_kern)             # loads the kernel
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        want = xf_f32_plain(l, r, coef, s_plain)
+        ev[1].record()
+        ev[2].record()
+        xf_f32(l, r, coef, s_kern)
+        ev[3].record()
+        torch.cuda.synchronize()
+        plain_ms += ev[0].elapsed_time(ev[1]) / 3
+        kern_ms += ev[2].elapsed_time(ev[3]) / 3
+        if not all(torch.equal(u, v) for u, v in zip(got, want)):
+            fail(f"float crossfeed kernel != plain version in segment "
+                 f"{seg}: largest gap "
+                 f"{max(max_gap(u, v) for u, v in zip(got, want)):.3e}")
+        s_plain, s_kern = want[2], got[2]
+    print(f"xf_f32: kernel == plain bit for bit on {B} streams x 3 chained "
+          f"segments of {T} samples, the last with per-lane [3, B] "
+          f"coefficients; plain {plain_ms:.1f} ms / kernel {kern_ms:.3f} ms "
+          f"per segment there", flush=True)
+    return {"name": "xf_f32", "route": "cuda",
+            "source": "dspi_tpu_torch/kernels/csrc/xf_f32.cu",
+            "replaces": "dspi_tpu/chain/pipeline.py:594-611 (xf_body, a "
+                        "lax.scan, no TPU kernel)",
+            "max_abs_err": 0.0, "plain_ms": plain_ms, "library_ms": None,
+            "equal_to_plain": True, "plain_shape": [T, B],
+            "kernel_ms_at_plain_shape": kern_ms}
+
+
 def eq_sample_ops(nb: int, loud: bool, env: bool, lane: bool) -> dict:
     """This build's SASS counts a stream-sample of the cascade kernel's
     instance <nb, loud, env>: cascade_kernel, or lane_kernel per lane."""
@@ -825,17 +1035,36 @@ def work(per_sample: dict, mul: int, n: int) -> dict:
 
 def bound(ops: dict, nbytes) -> tuple[float, str, str]:
     """(bound ms, what bounds it, the numbers) for operation counts (see
-    PIPE_OPS_PER_SM_CLOCK) and a byte count."""
-    terms = {"multiplies": ops["mul"] / PIPE_OPS_PER_SM_CLOCK,
-             "ALU-only": ops["alu_only"] / PIPE_OPS_PER_SM_CLOCK,
-             "issue": ops["arith"] / ISSUE_PER_SM_CLOCK}
+    PIPE_OPS_PER_SM_CLOCK; "fp32": FP32_PER_SM_CLOCK) and a byte count."""
+    rates = {"mul": ("multiplies", PIPE_OPS_PER_SM_CLOCK),
+             "alu_only": ("ALU-only", PIPE_OPS_PER_SM_CLOCK),
+             "arith": ("issue", ISSUE_PER_SM_CLOCK),
+             "fp32": ("float32", FP32_PER_SM_CLOCK)}
+    terms = {rates[k][0]: v / rates[k][1] for k, v in ops.items()}
     top = max(terms, key=terms.get)
     t_ops, t_bytes = terms[top] / sm_clocks_per_s(), nbytes / HBM_BYTES_PER_S
-    text = (f"{ops['mul']:.4e} multiplies, {ops['alu_only']:.4e} ALU-only "
-            f"and {ops['arith']:.4e} in all, longest term {top}; "
+    counts = ", ".join(f"{v:.4e} {rates[k][0]}" for k, v in ops.items())
+    text = (f"{counts} operations, longest term {top}; "
             f"{sm_clocks_per_s():.4e} SM clocks/s; {nbytes:.4e} bytes")
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", text)
+
+
+def _eqf_work(a, k) -> tuple[dict, int]:
+    """(operations, bytes) of one float cascade call, from its arguments
+    and the pinned counts: each cascade's loudness rows, bands by kind and
+    envelope over T samples of B streams; inputs and outputs once."""
+    x, cf, s0, scal = a
+    G, T, B = x.shape
+    loud, env = bool(k.get("has_loud")), bool(k.get("has_env"))
+    per = sum((2 * F32_LOUD_OPS if loud else 0)
+              + sum(F32_BAND_OPS[kd] for kd in row)
+              + (F32_ENV_OPS if env else 0) for row in k["kinds"])
+    sched = k.get("sched")
+    npkt = len(sched) if sched else T // k["tc"]
+    nbytes = 4 * (2 * x.numel() + (G * npkt * B if env else 0)
+                  + 2 * s0.numel() + cf.numel() + scal.numel())
+    return {"fp32": per * T * B}, nbytes
 
 
 def drive_path(dev, card: str, label: str, eng, x, audio_s: float,
@@ -896,6 +1125,13 @@ def drive_path(dev, card: str, label: str, eng, x, audio_s: float,
             "mean_ms": mean_ms, "rtf": rtf, "peak_gb": peak_gb}
 
 
+# the kernel wrappers record_calls wraps: (module, name, kind); eqf and
+# xff are the float scan lowering's cascade and crossfeed
+_RECORDED = (("pipeline", "q28_cascades", "eq"), ("pipeline", "xf_q28", "xf"),
+             ("pipeline", "f32_cascades", "eqf"),
+             ("pipeline", "xf_f32", "xff"), ("pdm_cuda", "pdm_words", "pdm"))
+
+
 def record_calls(eng, x, label: str,
                  kinds: tuple = ("eq", "xf", "eq", "pdm")) -> list:
     """Each cascade, crossfeed and PDM call of one more segment (fails
@@ -905,8 +1141,10 @@ def record_calls(eng, x, label: str,
     from dspi_tpu_torch.chain import pipeline
     from dspi_tpu_torch.kernels import pdm_cuda
 
+    mods = {"pipeline": pipeline, "pdm_cuda": pdm_cuda}
     calls = []
-    saved = pipeline.q28_cascades, pipeline.xf_q28, pdm_cuda.pdm_words
+    saved = [(mods[m], name, getattr(mods[m], name))
+             for m, name, _ in _RECORDED]
 
     def recorder(fn, kind):
         def call(*a, **k):
@@ -914,13 +1152,13 @@ def record_calls(eng, x, label: str,
             return fn(*a, **k)
         return call
 
-    pipeline.q28_cascades = recorder(saved[0], "eq")
-    pipeline.xf_q28 = recorder(saved[1], "xf")
-    pdm_cuda.pdm_words = recorder(saved[2], "pdm")
+    for (mod, name, fn), (_, _, kind) in zip(saved, _RECORDED):
+        setattr(mod, name, recorder(fn, kind))
     try:
         eng.process(x ^ (SEGMENTS + 1))
     finally:
-        pipeline.q28_cascades, pipeline.xf_q28, pdm_cuda.pdm_words = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     if tuple(kind for kind, *_ in calls) != kinds:
         fail(f"{label} segment made calls {[c[0] for c in calls]}")
     rows = []
@@ -943,6 +1181,17 @@ def record_calls(eng, x, label: str,
             extra = {"lane_cf": a[2].dim() == 2,
                      "sass_per_sample": sample_ops("xf_q28", "xf_kernel",
                                                    "stg", 2)}
+        elif kind == "eqf":
+            ops, nbytes = _eqf_work(a, k)
+            extra = {"G": a[0].shape[0], "has_loud": bool(k.get("has_loud")),
+                     "has_env": bool(k.get("has_env")),
+                     "lane": a[1].dim() == 4, "sched": bool(k.get("sched")),
+                     "kinds": [list(r) for r in k["kinds"]]}
+        elif kind == "xff":
+            T, B = a[0].shape
+            ops = {"fp32": XF_F32_OPS * T * B}
+            nbytes = 4 * (4 * T * B + 8 * B + a[2].numel())
+            extra = {"lane": a[2].dim() == 2}
         else:
             ops, nbytes = _pdm_work(*a[0].shape)
             extra = {"sass_per_sample": sample_ops("pdm", "pdm_kernel",
@@ -1187,13 +1436,120 @@ def phase_float_hetero(dev, card: str) -> dict:
     return result
 
 
+def phase_float_scan(dev, card: str) -> dict:
+    """The float chain's scan lowering at full width: the headline RP2350
+    chain (the float cell's geometry) with mxu=False, its recurrences as
+    the float cascade kernel (2 calls) and the float crossfeed kernel."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+
+    t0 = time.perf_counter()
+    eng = Engine(full_chain_config(Platform.RP2350, RATE), n_streams=STREAMS,
+                 block_size=BLOCK, emit="reduced", pdm=True, pdm_fade=False,
+                 mxu=False, device=dev)
+    print(f"float scan path: {STREAMS} streams x {PACKETS}x{BLOCK} samples, "
+          f"{SEGMENTS} chained segments; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
+    result = drive_path(dev, card, "float scan path", eng, x,
+                        STREAMS * PACKETS * BLOCK / RATE,
+                        {"eq_f32": 2, "xf_f32": 1, "pdm": 1}, 11,
+                        peak_max=32767)
+    result["calls"] = record_calls(eng, x, "float scan path",
+                                   kinds=("eqf", "xff", "eqf", "pdm"))
+    gs = [c["G"] for c in result["calls"] if c["kind"] == "eqf"]
+    if gs != [2, 9]:
+        fail(f"float scan path: cascade calls over {gs} cascades")
+    return result
+
+
+def phase_float_scan_hetero(dev, card: str) -> dict:
+    """The float scan lowering's flat per-lane layout at full width:
+    HeteroServer over 8 RP2350 configs of one structure scattered over
+    16384 streams with mxu=False (the float hetero cell's mix): both
+    cascade calls per lane."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import HeteroServer
+    from dspi_tpu_torch.configs import hetero_variants
+
+    t0 = time.perf_counter()
+    ids = np.random.default_rng(5).integers(0, HETERO_CONFIGS, STREAMS)
+    srv = HeteroServer(hetero_variants(HETERO_CONFIGS, Platform.RP2350), ids,
+                       block_size=BLOCK, emit="reduced", pdm=True,
+                       pdm_fade=False, mxu=False, device=dev)
+    lanes = srv.grouped.n_groups * srv.grouped.streams_per_group
+    print(f"float scan hetero path: {HETERO_CONFIGS} configs over {STREAMS} "
+          f"streams ({lanes} lanes, padding waste {srv.padding_waste:.4f}, "
+          f"layout {srv.grouped.layout}) x {PACKETS}x{BLOCK} samples, "
+          f"{SEGMENTS} chained segments; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if srv.grouped.layout != "flat":
+        fail("float scan hetero path: not the flat per-lane layout")
+    gen = torch.Generator(device=dev).manual_seed(73)
+    x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
+    result = drive_path(dev, card, "float scan hetero path", srv, x,
+                        STREAMS * PACKETS * BLOCK / RATE,
+                        {"eq_f32": 2, "eq_f32_lane": 2, "xf_f32": 1,
+                         "pdm": 1}, 11, peak_max=32767)
+    result.update(padding_waste=srv.padding_waste, lanes=lanes,
+                  calls=record_calls(srv, x, "float scan hetero path",
+                                     kinds=("eqf", "xff", "eqf", "pdm")))
+    return result
+
+
+def phase_scan_card_vs_cpu(dev) -> None:
+    """The float scan engine at 8 streams on the card and on the CPU: 48
+    kHz (3 segments of 4 packets) and 44.1 kHz (2 segments of the 10-packet
+    44/45 cadence), past the 480-sample lookahead; float_close, clip flags
+    equal, and whether the outputs are equal bit for bit."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, packet_geometry
+    from dspi_tpu_torch.configs import full_chain_config
+
+    B = 8
+    rng = np.random.default_rng(79)
+    sched = packet_geometry(44100, 10)[1]
+    notes = []
+    for label, rate, kw, nseg in (
+            ("48 kHz", RATE, dict(block_size=BLOCK), 3),
+            ("44.1 kHz", 44100.0, dict(schedule=sched), 2)):
+        engs = [Engine(full_chain_config(Platform.RP2350, rate), n_streams=B,
+                       emit="full", mxu=False, device=d, **kw)
+                for d in (dev, "cpu")]
+        worst, compared, same = 0.0, 0, True
+        for seg in range(nseg):
+            if "schedule" in kw:
+                x = rng.integers(-16000, 16000, size=(2, sum(sched), B))
+            else:
+                x = rng.integers(-16000, 16000, size=(4, 2, BLOCK, B))
+            gpu, cpu = (e.process(x.astype(np.int32)) for e in engs)
+            w, n = float_close(f"scan card vs CPU ({label}, segment {seg})",
+                               gpu, cpu)
+            worst, compared = max(worst, w), compared + n
+            same = same and all(torch.equal(gpu[k].cpu(), cpu[k])
+                                for k in cpu)
+        if cpu["out"].double().pow(2).mean().sqrt() < 1e-4:
+            fail(f"scan card vs CPU ({label}): reference signal is silent")
+        if not torch.equal(engs[0].state.clip_flags.cpu(),
+                           engs[1].state.clip_flags):
+            fail(f"scan card vs CPU ({label}): clip flags differ")
+        notes.append(f"{label}: worst out/s24 relative RMS {worst:.3e}, PDM "
+                     f"words equal over {compared} sample-streams, every "
+                     f"output equal bit for bit: {same}")
+    print(f"scan card vs CPU, {B} streams: " + "; ".join(notes), flush=True)
+
+
 def check_path_call(kind, fn, a, k) -> dict:
     """One recorded call of a main path: the kernel at the path's own
     shape, held against the plain version run on the CPU over the first
     and the last 64 streams of the same arguments (per-lane coefficients
     cut to the same lanes), every word equal."""
     from dspi_tpu_torch.kernels.eq import q28_cascades_plain
+    from dspi_tpu_torch.kernels.eq_f32 import f32_cascades_plain
     from dspi_tpu_torch.kernels.xf_cuda import xf_q28_plain
+    from dspi_tpu_torch.kernels.xf_f32_cuda import xf_f32_plain
 
     B = a[0].shape[-1]
     idx = _edge_lanes(B, a[0].device)
@@ -1203,25 +1559,27 @@ def check_path_call(kind, fn, a, k) -> dict:
         return v.index_select(-1, idx).cpu()
 
     t0 = time.perf_counter()
-    if kind == "eq":
+    if kind in ("eq", "eqf"):
         x, cf, s0, scal = a
         lane = cf.dim() == 4
-        want = q28_cascades_plain(cut(x), cut(cf) if lane else cf.cpu(),
-                                  cut(s0), cut(scal) if lane else scal.cpu(),
-                                  **k)
+        plain = q28_cascades_plain if kind == "eq" else f32_cascades_plain
+        want = plain(cut(x), cut(cf) if lane else cf.cpu(), cut(s0),
+                     cut(scal) if lane else scal.cpu(), **k)
         names = ("y", "env", "state")
     else:
         l, r, coef, s4 = a
-        want = xf_q28_plain(cut(l), cut(r),
-                            cut(coef) if coef.dim() == 2 else coef.cpu(),
-                            cut(s4))
+        plain = xf_q28_plain if kind == "xf" else xf_f32_plain
+        want = plain(cut(l), cut(r),
+                     cut(coef) if coef.dim() == 2 else coef.cpu(), cut(s4))
         names = ("left", "right", "state")
     plain_s = time.perf_counter() - t0
     for name, u, v in zip(names, got, want):
         if (u is None) != (v is None) or (
                 u is not None and not torch.equal(cut(u), v)):
+            gap = ("" if u is None or v is None else
+                   f"; largest gap {max_gap(cut(u), v):.3e}")
             fail(f"{kind} kernel != plain version ({name}) on the main "
-                 f"path's arguments {list(a[0].shape)} {k}")
+                 f"path's arguments {list(a[0].shape)} {k}{gap}")
     return {"checked_streams": f"0-63 and {B - 64}-{B - 1}",
             "plain_cpu_s": plain_s, "equal_to_plain_at_path_shape": True}
 
@@ -1541,11 +1899,13 @@ def main() -> None:
     kind, card = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    built = phase_build()
     pdm_row = phase_pdm(dev)
     eq_row = phase_eq(dev)
     mode_times = phase_eq_modes(dev)
     xf_row = phase_xf(dev)
+    eqf_times = phase_eq_f32(dev)
+    xff_row = phase_xf_f32(dev)
     main_path = phase_main(dev, card)
     phase_card_vs_cpu(dev)
     q28 = phase_q28_main(dev, card, 16, record=True)
@@ -1558,6 +1918,9 @@ def main() -> None:
     f_441 = phase_float_44k1(dev, card)
     f_het = phase_float_hetero(dev, card)
     phase_float_paths_card_vs_cpu(dev)
+    f_scan = phase_float_scan(dev, card)
+    f_scan_het = phase_float_scan_hetero(dev, card)
+    phase_scan_card_vs_cpu(dev)
     serving = phase_serving(card)
     phase_runner_card_vs_cpu(dev)
     pdm_row.update(phase_pdm_plain())
@@ -1572,6 +1935,8 @@ def main() -> None:
              "rp2350_float_wire": f_wire["launches"],
              "rp2350_float_44k1": f_441["launches"],
              "rp2350_float_hetero": f_het["launches"],
+             "rp2350_float_scan": f_scan["launches"],
+             "rp2350_float_scan_hetero": f_scan_het["launches"],
              **{label: cell["launches"] for label, cell in serving.items()}}
     # the cascade kernel's scalar-coefficient, uniform-packet mode: its
     # launches less the other modes' (no path combines lane_cf and a
@@ -1598,9 +1963,31 @@ def main() -> None:
                  "plain_shape": [4, sum(SCHED), 4100],
                  "kernel_ms_at_plain_shape": mode_times["sched"][1],
                  **_path_rows(s441["calls"], "eq")}
+    eqf_row = {"name": "eq_f32_cascade", "route": "cuda",
+               "source": "dspi_tpu_torch/kernels/csrc/eq_f32.cu",
+               "replaces": "dspi_tpu/chain/pipeline.py:418-485 and :626-639 "
+                           "(scan A and scan B, lax.scan, no TPU kernel)",
+               "max_abs_err": 0.0,
+               "plain_ms": eqf_times["scalar G=2"][0]
+               + eqf_times["scalar G=9"][0],
+               "library_ms": None, "equal_to_plain": True,
+               "plain_shape": [[2, 2 * BLOCK, 4100], [9, 2 * BLOCK, 4100]],
+               "kernel_ms_at_plain_shape": eqf_times["scalar G=2"][1]
+               + eqf_times["scalar G=9"][1],
+               "phase_ms_by_mode": eqf_times,
+               "registers": built.get("eq_f32", {}).get("registers"),
+               "pinned_ops": {"band": F32_BAND_OPS, "loudness": F32_LOUD_OPS,
+                              "envelope": F32_ENV_OPS},
+               **_path_rows(f_scan["calls"], "eqf"),
+               "hetero": _path_rows(f_scan_het["calls"], "eqf")}
+    xff_row.update(_path_rows(f_scan["calls"], "xff"),
+                   hetero=_path_rows(f_scan_het["calls"], "xff"),
+                   pinned_ops=XF_F32_OPS,
+                   registers=built.get("xf_f32", {}).get("max_registers"))
     for row, key in ((pdm_row, "pdm"), (eq_row, "eq_q28_scalar"),
                      (lane_row, "eq_q28_lane_cf"),
-                     (sched_row, "eq_q28_sched"), (xf_row, "xf_q28")):
+                     (sched_row, "eq_q28_sched"), (xf_row, "xf_q28"),
+                     (eqf_row, "eq_f32"), (xff_row, "xf_f32")):
         row["launches_by_path"] = {p: n.get(key, 0) for p, n in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     # the scalar mode's time and bound per segment: its two calls
@@ -1613,7 +2000,9 @@ def main() -> None:
                      ("rp2040_q28_44k1", s441),
                      ("rp2350_float_wire", f_wire),
                      ("rp2350_float_44k1", f_441),
-                     ("rp2350_float_hetero", f_het))}
+                     ("rp2350_float_hetero", f_het),
+                     ("rp2350_float_scan", f_scan),
+                     ("rp2350_float_scan_hetero", f_scan_het))}
     pdm_row["paths"] = {
         p: {k: r[k] for k in ("mean_ms", "rtf", "peak_gb")}
         for p, r in (("rp2350_float", main_path), ("rp2040_q28_16bit", q28),
@@ -1621,7 +2010,9 @@ def main() -> None:
                      ("rp2040_q28_hetero", hetero), ("rp2040_q28_44k1", s441),
                      ("rp2350_float_wire", f_wire),
                      ("rp2350_float_44k1", f_441),
-                     ("rp2350_float_hetero", f_het))}
+                     ("rp2350_float_hetero", f_het),
+                     ("rp2350_float_scan", f_scan),
+                     ("rp2350_float_scan_hetero", f_scan_het))}
     pdm_row["serving"] = serving
     pdm_row["wire_stage"] = {k: f_wire[k] for k in (
         "wire_ms", "wire_segment_ms", "wire_share", "fused_wire_bound_ms")}
@@ -1630,7 +2021,7 @@ def main() -> None:
                   hetero_call=next(c for c in hetero["calls"]
                                      if c["kind"] == "xf"))
     print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
-                                  xf_row]}), flush=True)
+                                  xf_row, eqf_row, xff_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,12 +4,13 @@ A port of the JAX package ``dspi_tpu`` (which stays the reference) to
 PyTorch on an NVIDIA H100.  It imports nothing of JAX or of ``dspi_tpu``:
 the plain-Python modules it needs are its own copies.
 
-It runs the RP2350 float chain on the block-matmul lowering and the
-RP2040 Q28 chain, both at 44.1/48/96 kHz, with the device-side wire words
-and grouped/hetero serving (``chain.GroupedEngine``,
-``chain.HeteroServer``), on the Q28 chain also with per-stream
-parameters, and the delta-sigma PDM modulator, the Q28 EQ cascades and the
-Q28 crossfeed as hand-written CUDA kernels.  Its serving surface is the
+It runs the RP2350 float chain on both of its lowerings (block matmuls;
+the scan, ``mxu=False``) and the RP2040 Q28 chain, both at 44.1/48/96
+kHz, with the device-side wire words and grouped/hetero serving
+(``chain.GroupedEngine``, ``chain.HeteroServer``), on the Q28 chain and
+the float scan lowering also with per-stream parameters, and the
+delta-sigma PDM modulator, the Q28 EQ cascades and crossfeed, and the
+float EQ cascades and crossfeed as hand-written CUDA kernels.  Its serving surface is the
 JAX package's: the runners, the vendor control plane and the entry
 points ``python -m dspi_tpu_torch.serve`` and ``python -m
 dspi_tpu_torch.console``.

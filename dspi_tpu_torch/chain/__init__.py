@@ -2,13 +2,13 @@
 
 ``Engine`` runs B parallel streams of one device config on one card.  It
 mirrors the JAX package's ``Engine`` (chain/__init__.py) for the RP2350
-float chain on the block-matmul lowering and for the RP2040 Q28 chain, at
-44.1 (the 44/45 packet schedule), 48 and 96 kHz, with the device-side wire
-words (``wire=True``) on both and per-stream parameters on the Q28 chain.
+float chain on both of its lowerings (the block-matmul one, ``mxu=True``,
+the port's default, and the scan one, ``mxu=False``) and for the RP2040
+Q28 chain, at 44.1 (the 44/45 packet schedule), 48 and 96 kHz, with the
+device-side wire words (``wire=True``) on both chains and per-stream
+parameters on the Q28 chain and the float scan lowering.
 ``GroupedEngine`` and ``HeteroServer`` (chain/grouped.py) serve several
-configs of either chain at once.  The float chain's scan lowering
-(``mxu=False``) is refused with NotImplementedError naming its ROADMAP.md
-item.
+configs of either chain at once.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from .mxu import build_blocks
 from .pack import (ChainParams, ChainState, StaticChain, build_params,
                    build_params_multi, build_static, from_numpy,
                    init_state, resolve_device, to_device, to_numpy)
-from .pipeline import process_float, process_q28, refuse
+from .pipeline import process_float, process_q28
 
 __all__ = ["Engine", "GroupedEngine", "HeteroServer", "StaticChain",
            "ChainParams", "ChainState", "build_static", "build_params",
@@ -71,7 +71,11 @@ class Engine:
         time-flat.  ``wire``: emit the wire-format word streams on the
         device — S/PDIF subframe words or I2S words per the config's
         output slot types, 'wire{pair}' (emit='full') or 'wire_sum'
-        (emit='reduced').  Refused (not ported yet): ``mxu=False``."""
+        (emit='reduced').  ``mxu``: the float chain's LTI passes as
+        block matmuls (True), or its per-sample recurrences as the float
+        cascade and crossfeed kernels (False, the scan lowering, which
+        also takes per-stream parameters); the Q28 chain has only the
+        latter."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_streams = n_streams
@@ -81,7 +85,6 @@ class Engine:
         self.static = build_static(self.derived, block_size=block_size,
                                    bit_depth=bit_depth, emit=emit, pdm=pdm,
                                    schedule=schedule, mxu=mxu, wire=wire)
-        refuse(self.static)
         self.params = to_device(build_params(self.derived, self.static),
                                 self.device)
         self.blocks = self._blocks()
@@ -105,17 +108,17 @@ class Engine:
     @property
     def segment_fn(self):
         """``(params, state, x, preset_mute) -> (state', out)`` for the
-        CURRENT static and, on the float chain, block matrices (which
-        belong to ``self.params``)."""
+        CURRENT static and, on the block-matmul lowering, block matrices
+        (which belong to ``self.params``)."""
         if not self.static.is_float:
             return functools.partial(process_q28, self.static)
         return functools.partial(process_float, self.static,
                                  blocks=self.blocks)
 
     def _blocks(self):
-        """The float chain's block matrices for the current params (the Q28
-        chain has none)."""
-        if not self.static.is_float:
+        """The block matrices for the current params: None on the scan
+        lowering (the Q28 chain has only that one)."""
+        if not self.static.mxu:
             return None
         return build_blocks(self.static, self.params, self.device)
 
@@ -123,8 +126,10 @@ class Engine:
         """Take params and state as NumPy trees (what the JAX package's
         ``build_params``/``init_state`` return, or ``np.asarray`` of its
         engine's), so both packages can run from the same numbers.  On the
-        Q28 chain the params may be per-stream (``build_params_multi``)."""
-        self.params, self.state = from_numpy(params, state, self.device)
+        Q28 chain and the float scan lowering the params may be per-stream
+        (``build_params_multi``)."""
+        self.params, self.state = from_numpy(params, state, self.device,
+                                             self.static)
         self.blocks = self._blocks()
 
     # -- control ----------------------------------------------------------
@@ -162,7 +167,6 @@ class Engine:
             pdm=old_static.pdm_on or cfg.outputs[-1].enabled,
             schedule=schedule, mxu=old_static.mxu,
             wire=bool(old_static.wire), pdm_keep=old_static.pdm_on)
-        refuse(new_static)
         self.cfg, self.derived = cfg, new_d
         self._rate = float(cfg.sample_rate)
         if new_static != old_static:

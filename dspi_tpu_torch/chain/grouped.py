@@ -14,18 +14,22 @@ package's two layouts differ in how its state and params are laid out,
 and ``layout`` names the one an engine exchanges with it
 (``load_numpy``/``to_numpy``):
 
-  * ``"flat"`` (the default for Q28 configs): per-lane params and [.., K*G]
-    state, the JAX package's flat layout.  The Q28 chain's two cascade
-    calls run in the kernel's per-lane (``lane_cf``) mode.  Per-stream
-    delays, which the JAX package's ``layout="auto"`` sends to its vmapped
-    layout, stay flat here and read the delay ring through a per-lane
-    gather; so do wire words in reduced emit, folded group by group.
-  * ``"vmap"`` (the default for float configs, whose block matrices are
-    per group): [K, ...] params and [K, ..., G] state, the JAX package's
-    vmapped layout.  On the float chain every block product applies
-    group k's matrices to group k's lanes (``mxu.stack_groups``); every
-    elementwise stage runs over all lanes with per-lane leaves.  The flat
-    per-lane float layout needs the scan lowering (ROADMAP.md item 7).
+  * ``"flat"`` (the default for Q28 configs and for float configs on the
+    scan lowering, ``mxu=False``): per-lane params and [.., K*G] state,
+    the JAX package's flat layout.  The cascade calls run in their
+    kernels' per-lane modes (the Q28 kernel's ``lane_cf``, the float
+    kernel's per-lane coefficients), and so does the crossfeed.
+    Per-stream delays, which the JAX package's ``layout="auto"`` sends to
+    its vmapped layout, stay flat here and read the delay ring through a
+    per-lane gather; so do wire words in reduced emit, folded group by
+    group.
+  * ``"vmap"`` (the default for float configs on the block-matmul
+    lowering, whose block matrices are per group): [K, ...] params and
+    [K, ..., G] state, the JAX package's vmapped layout.  On that lowering
+    every block product applies group k's matrices to group k's lanes
+    (``mxu.stack_groups``); every elementwise stage runs over all lanes
+    with per-lane leaves.  The flat layout of float configs needs the scan
+    lowering.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from . import mxu
 from .pack import (ChainParams, ChainState, _NDIM, build_params,
                    build_static, from_numpy, init_state, lane_params,
                    resolve_device, to_device, to_numpy)
-from .pipeline import process_float, process_q28, refuse
+from .pipeline import process_float, process_q28
 
 
 def _regroup(key, v, K, G):
@@ -62,11 +66,13 @@ class GroupedEngine:
     def __init__(self, cfgs, streams_per_group: int, block_size: int = 48,
                  bit_depth: int = 16, emit: str = "full", pdm: bool = True,
                  pdm_fade: bool = True, pdm_seed=C.PDM_RNG_SEED,
-                 schedule=None, wire: bool = False, layout: str = "auto",
-                 device=None):
-        """``layout``: "auto", "flat" or "vmap" (module docstring); "auto"
-        is "vmap" for float configs and "flat" for Q28 ones.  ``device``:
-        None means "cuda", and raises when no CUDA device is present."""
+                 schedule=None, mxu: bool = True, wire: bool = False,
+                 layout: str = "auto", device=None):
+        """``mxu``: the float chain's lowering, as ``Engine``'s.
+        ``layout``: "auto", "flat" or "vmap" (module docstring); "auto" is
+        "vmap" for float configs on the block-matmul lowering and "flat"
+        otherwise.  ``device``: None means "cuda", and raises when no CUDA
+        device is present."""
         if layout not in ("auto", "flat", "vmap"):
             raise ValueError(f"unknown layout {layout!r}")
         self.device = resolve_device(device)
@@ -76,7 +82,7 @@ class GroupedEngine:
         deriveds = [derive(c) for c in self.cfgs]
         statics = [build_static(d, block_size=block_size,
                                 bit_depth=bit_depth, emit=emit, pdm=pdm,
-                                schedule=schedule, wire=wire)
+                                schedule=schedule, mxu=mxu, wire=wire)
                    for d in deriveds]
         if any(s != statics[0] for s in statics):
             raise ValueError(
@@ -84,14 +90,12 @@ class GroupedEngine:
                 "enables, dynamics toggles); use one Engine per structure "
                 "or build_params_multi for per-stream coefficients")
         self.static = statics[0]
-        refuse(self.static)
         if layout == "auto":
-            layout = "vmap" if self.static.is_float else "flat"
-        if self.static.is_float and layout == "flat":
+            layout = "vmap" if self.static.mxu else "flat"
+        if self.static.mxu and layout == "flat":
             raise NotImplementedError(
                 "the flat per-lane layout of float configs needs the scan "
-                "lowering, which is not ported yet: ROADMAP.md section 1, "
-                "item 7")
+                "lowering: build with mxu=False")
         self.layout = layout
         self.blocks = None
         self._group_params = [build_params(d, self.static)
@@ -104,13 +108,13 @@ class GroupedEngine:
                        pdm_seed=pdm_seed, pdm_fade=pdm_fade), self.device)
 
     def _set_params(self, k=None) -> None:
-        """The lane params from the per-group NumPy trees, and on the float
-        chain the grouped block matrices: all groups', or group ``k``'s
-        only."""
+        """The lane params from the per-group NumPy trees, and on the
+        block-matmul lowering the grouped block matrices: all groups', or
+        group ``k``'s only."""
         ids = np.repeat(np.arange(self.n_groups), self.streams_per_group)
         self.params = to_device(lane_params(self._group_params, ids),
                                 self.device)
-        if not self.static.is_float:
+        if not self.static.mxu:
             return
         if k is None:
             per = [mxu.build_blocks(self.static, gp, self.device)
@@ -126,15 +130,15 @@ class GroupedEngine:
 
     def update_group(self, k: int, cfg) -> None:
         """Swap group ``k``'s coefficients (the new config must keep the
-        shared static structure): its params, and on the float chain its
-        block matrices only.  Leaves that stay config-uniform keep their
+        shared static structure): its params, and on the block-matmul
+        lowering its block matrices only.  Leaves that stay config-uniform keep their
         collapsed homogeneous shape."""
         d = derive(cfg)
         s = build_static(d, block_size=self.static.block_size,
                          bit_depth=self.static.bit_depth,
                          emit=self.static.emit, pdm=self.static.pdm_on,
                          schedule=self.static.schedule,
-                         wire=bool(self.static.wire))
+                         mxu=self.static.mxu, wire=bool(self.static.wire))
         if s != self.static:
             raise ValueError("new config changes the static structure")
         self.cfgs[k] = cfg
@@ -145,9 +149,9 @@ class GroupedEngine:
     def load_numpy(self, params, state) -> None:
         """Take the params and state of the JAX package's GroupedEngine of
         this ``layout`` (NumPy trees, ``np.asarray`` of its leaves):
-        "vmap" [K, ...] params and [K, ..., G] state (group k's block
-        matrices are built from its params), "flat" per-lane params
-        (Q28) and [..., K*G] state."""
+        "vmap" [K, ...] params and [K, ..., G] state (on the block-matmul
+        lowering group k's block matrices are built from its params),
+        "flat" per-lane params and [..., K*G] state."""
         K = self.n_groups
         fields = {}
         for f in ChainState._fields:
@@ -165,7 +169,7 @@ class GroupedEngine:
                 fields[f] = v.reshape(*v.shape[:-2], -1)
         if self.layout == "flat":
             self.params, self.state = from_numpy(params, ChainState(**fields),
-                                                 self.device)
+                                                 self.device, self.static)
             self._group_params = self._split_lanes(params)
             return
         group_params = []

@@ -9,11 +9,11 @@ samples any such pass is exactly a matrix:
     [y_0..y_{T-1}; s_out]  =  M @ [x_0..x_{T-1}; s_in]
 
 M is built by the impulse method: one-hot basis columns go through the
-same per-sample step code (pipeline._band_step_f32 / _svf_general_f32 /
-the crossfeed math), so every structural semantic is inherited by
-construction.  It is then applied per packet with the input part hoisted
-into batched products over the whole segment, and only the [S, B] state
-carried through a loop over packets.
+same per-sample step code (kernels/eq_f32.py band_step_f32 /
+svf_general_f32 / the crossfeed math), so every structural semantic is
+inherited by construction.  It is then applied per packet with the input
+part hoisted into batched products over the whole segment, and only the
+[S, B] state carried through a loop over packets.
 
 This is the JAX package's ``chain/mxu.py``.  Variable-packet schedules
 (the 44.1 kHz 44/45 cadence) run as there: the LTI passes re-block the
@@ -54,8 +54,10 @@ import numpy as np
 import torch
 
 from ..core import constants as C
-from .pipeline import (_band_step_f32, _gather_states, _pattern_len,
-                       _pkts_to_flat, _scatter_states, _svf_general_f32)
+from ..kernels.eq_f32 import band_step_f32 as _band_step_f32
+from ..kernels.eq_f32 import svf_general_f32 as _svf_general_f32
+from .pipeline import (_gather_states, _pattern_len, _pkts_to_flat,
+                       _scatter_states)
 
 _F32 = torch.float32
 

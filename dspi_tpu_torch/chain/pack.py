@@ -471,28 +471,23 @@ _NDIM = dict(unpack_gain=1, loud_sva=2, loud_qbq=2, loud_bypass=1,
              matrix_gain=2, out_gain=1, delay_samples=1)
 
 
-def _check_supported(params):
-    """Per-stream (per-lane) trees run on the Q28 chain only: the float
-    chain's block matrices are built from homogeneous coefficients, so a
-    per-stream float tree needs the scan lowering.  (Grouped float serving
-    builds block matrices per group: ``GroupedEngine.load_numpy``.)"""
-    if params.eq_f32 is not None and any(
-            getattr(params, f) is not None
-            and np.ndim(getattr(params, f)) > n for f, n in _NDIM.items()):
-        raise NotImplementedError(
-            "per-stream parameters on the float chain need its scan "
-            "lowering, which is not ported yet: ROADMAP.md section 1, "
-            "item 7")
-
-
-def from_numpy(params, state, device):
+def from_numpy(params, state, device, static=None):
     """JAX-package (or port) ChainParams/ChainState holding NumPy arrays
     -> the port's trees of torch tensors on ``device``.  Fields are read
-    by name, so any NamedTuple with the port's field names will do.  On
-    the Q28 chain the params may be per-stream trees, as the JAX
-    package's ``build_params_multi`` or a flat ``GroupedEngine`` holds
-    them."""
-    _check_supported(params)
+    by name, so any NamedTuple with the port's field names will do.  The
+    params may be per-stream trees, as the JAX package's
+    ``build_params_multi`` or a flat ``GroupedEngine`` holds them, except
+    on a float ``static`` of the block-matmul lowering, whose block
+    matrices are built from homogeneous coefficients (ValueError there:
+    per-stream float trees need ``mxu=False``; grouped float serving on
+    that lowering takes per-group trees, ``GroupedEngine.load_numpy``)."""
+    if static is not None and static.is_float and static.mxu and any(
+            getattr(params, f) is not None
+            and np.ndim(getattr(params, f)) > n for f, n in _NDIM.items()):
+        raise ValueError(
+            "per-stream parameters on the float chain require the scan "
+            "path: the block matrices are built from homogeneous "
+            "coefficients (build the engine with mxu=False)")
     p = ChainParams(*[getattr(params, f) for f in ChainParams._fields])
     s = ChainState(*[getattr(state, f) for f in ChainState._fields])
     return to_device(p, device), to_device(s, device)

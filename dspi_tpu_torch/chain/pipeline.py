@@ -9,14 +9,21 @@ A chain with a packet schedule (``static.schedule``, the 44.1 kHz 44/45
 cadence) takes the time-flat x int32 [2, sum(schedule), B] instead.
 
 ``process_float`` is the RP2350 float chain, the JAX package's
-``_process_float`` (chain/pipeline.py) on its block-matmul branches: the
-LTI passes (loudness + master EQ, crossfeed + matrix + per-output EQ) run
-as per-packet block matrices (chain/mxu.py), the leveller envelope as a
-weighted block reduction, and the rest as whole-segment tensor ops.  It is
-ulp-faithful, not bit-frozen: matrix products re-round what the firmware
-computes sequentially, so it is held to <= 1e-6 relative RMS against the
-firmware-semantics golden model.  It takes packet schedules and, for
-grouped serving, per-group block matrices over K contiguous lane groups.
+``_process_float`` (chain/pipeline.py) on either of its lowerings.  On the
+block-matmul lowering (``static.mxu``) the LTI passes (loudness + master
+EQ, crossfeed + matrix + per-output EQ) run as per-packet block matrices
+(chain/mxu.py), the leveller envelope as a weighted block reduction; the
+matrix products re-round what the firmware computes sequentially, so it
+is held to <= 1e-6 relative RMS against the firmware-semantics golden
+model, and it takes per-group block matrices over K contiguous lane
+groups for grouped serving.  On the scan lowering (``mxu=False``) the
+per-sample recurrences run as they are written: loudness, master EQ and
+the envelope as one float cascade kernel call (kernels/eq_f32_cuda.py),
+the crossfeed as its own kernel (kernels/xf_f32_cuda.py), the matrix mix
+as tensor ops, the per-output EQ as a second cascade call; every float
+operation rounds on its own, and any leaf of the params may carry a
+trailing [B] stream axis (per-stream parameters).  The rest runs as
+whole-segment tensor ops on both.  Both take packet schedules.
 
 ``process_q28`` is the RP2040 Q28 chain, the JAX package's
 ``_process_q28``, bit-exact: both EQ scans run as the Q28 cascade kernel
@@ -36,9 +43,6 @@ with ``static.wire``, the s24 samples become the S/PDIF or I2S wire words
   PASS 3  crossfeed + master peaks              usb_audio.c:737-749 / 1064-1073
   PASS 4  matrix mix                            usb_audio.c:751-779 / 1075-1100
   PASS 5  per-output EQ/gain/delay/convert      usb_audio.c:873-959 / 1191-1275
-
-Refused here, naming its ROADMAP.md item: the float chain's scan lowering
-(``mxu=False``).
 """
 from __future__ import annotations
 
@@ -50,64 +54,15 @@ from ..core import fmath
 from ..core.qmath import f32_to_i32, q15_mul, q28_mul, q28_to_s24, wrap32
 from ..kernels import encoders
 from ..kernels.eq_cuda import q28_cascades
+from ..kernels.eq_f32_cuda import f32_cascades
 from ..kernels.pdm_cuda import pdm_segment
 from ..kernels.xf_cuda import xf_q28
-from .pack import SKIP, SVF_HP, SVF_LP, SVF_PEAK, TDF2, StaticChain
+from ..kernels.xf_f32_cuda import xf_f32
+from .pack import SKIP, TDF2, StaticChain
 
 _F32 = torch.float32
 _I32 = torch.int32
 _INV20 = float(np.float32(1.0) / np.float32(20.0))
-
-
-# ----------------------------------------------------------------------------
-# per-band sample steps (used to build the block matrices)
-# ----------------------------------------------------------------------------
-
-
-def _band_step_f32(kind: int, cf, s, xin):
-    """One band, one sample, float path (dsp_pipeline.c:298-364).
-
-    cf: [11] coefficient row; s: (a, b) state pair; returns (out, s')."""
-    if kind == TDF2:
-        b0, b1, b2, a1, a2 = cf[6], cf[7], cf[8], cf[9], cf[10]
-        s1, s2 = s
-        out = b0 * xin + s1
-        s1n = b1 * xin - a1 * out + s2
-        s2n = b2 * xin - a2 * out
-        return out, (s1n, s2n)
-    a1, a2, a3 = cf[0], cf[1], cf[2]
-    m0, m1, m2 = cf[3], cf[4], cf[5]
-    ic1, ic2 = s
-    v3 = xin - ic2
-    v1 = a1 * ic1 + a2 * v3
-    v2 = ic2 + a2 * ic1 + a3 * v3
-    ic1n = 2.0 * v1 - ic1
-    ic2n = 2.0 * v2 - ic2
-    if kind == SVF_LP:
-        out = v2
-    elif kind == SVF_HP:
-        out = xin + m1 * v1 - v2
-    elif kind == SVF_PEAK:
-        out = xin + m1 * v1
-    else:
-        out = m0 * xin + m1 * v1 + m2 * v2
-    return out, (ic1n, ic2n)
-
-
-def _svf_general_f32(cf_row, s, xin, bypass):
-    """Loudness shelf: general SVF mix with runtime bypass
-    (usb_audio.c:697-702).  When bypassed, both state and output freeze."""
-    sva1, sva2, sva3, svm0, svm1, svm2 = (cf_row[0], cf_row[1], cf_row[2],
-                                          cf_row[3], cf_row[4], cf_row[5])
-    ic1, ic2 = s
-    v3 = xin - ic2
-    v1 = sva1 * ic1 + sva2 * v3
-    v2 = ic2 + sva2 * ic1 + sva3 * v3
-    ic1n = 2.0 * v1 - ic1
-    ic2n = 2.0 * v2 - ic2
-    out = svm0 * xin + svm1 * v1 + svm2 * v2
-    return (torch.where(bypass, xin, out),
-            (torch.where(bypass, ic1, ic1n), torch.where(bypass, ic2, ic2n)))
 
 
 # ----------------------------------------------------------------------------
@@ -246,17 +201,6 @@ def _unflatten(arrs, Npkt, T):
     return arrs.reshape(k, Npkt, T, b).movedim(1, 0)
 
 
-def refuse(static: StaticChain):
-    """Raise NotImplementedError for every chain the port does not run:
-    the float chain's scan lowering.  The Q28 chain has no block-matmul
-    lowering (``build_static`` sets ``mxu=False`` for it), so the lowering
-    check is the float chain's."""
-    if static.is_float and not static.mxu:
-        raise NotImplementedError(
-            "the scan lowering (mxu=False) is not ported yet: ROADMAP.md "
-            "section 1, item 7")
-
-
 def _fold(v, groups=None, lanes=None):
     """The uint32 sum mod 2^32 of int32 bit patterns ``v`` [..., B], held
     in int64: one scalar, or one a group of B / ``groups`` lanes ([K]);
@@ -373,20 +317,159 @@ def _s24_wire_pdm(static: StaticChain, st, outputs, bufs, convert, sub,
     return st
 
 
+def _f32_lane(static: StaticChain, p) -> bool:
+    """Whether scan A runs per lane: any leaf it reads carries a stream
+    axis (the master EQ rows, the loudness rows or bypass flags, the
+    leveller's RMS alpha), as ``_master_lane`` decides on the Q28 chain."""
+    return (p.eq_f32.dim() == 4
+            or (static.loudness_on and (p.loud_sva.dim() == 3
+                                        or p.loud_bypass.dim() == 2))
+            or (static.leveller_on and p.lev.dim() == 2))
+
+
+def _f32_cascade(p, st, bands, nb, lane, B, dev, prefix=(), sprefix=()):
+    """One float cascade of ``bands``, padded to ``nb`` bands with SKIP
+    rows (a pass-through) and zero states, after the ``prefix`` rows
+    ([11] or [11, B]) and their ``sprefix`` state rows: (cf [nr, 11] or
+    [nr, 11, B] with ``lane``, its state rows, its kinds)."""
+    pad = nb - len(bands)
+    rows = list(prefix) + [p.eq_f32[c, band] for c, band, _k in bands]
+    rows += [torch.zeros(11, dtype=_F32, device=dev)] * pad
+    srows = list(sprefix) + [v for pair in _gather_states(st, bands)
+                             for v in pair]
+    srows += [torch.zeros((B,), dtype=_F32, device=dev)] * (2 * pad)
+    if lane:
+        rows = [r.unsqueeze(-1).expand(11, B) if r.dim() == 1 else r
+                for r in rows]
+    cf = (torch.stack(rows) if rows else
+          torch.zeros((0, 11, B) if lane else (0, 11), dtype=_F32,
+                      device=dev))
+    return cf, srows, tuple(k for _c, _b, k in bands) + (SKIP,) * pad
+
+
+def _f32_master(static: StaticChain, p, st, bl, br, master_bands, sched):
+    """Scan A as one float cascade call over G=2 (master L, R): the
+    loudness prefix, the master bands (SKIP rows pad the shorter channel)
+    and the leveller envelope (kernels/eq_f32_cuda.py).  ``st`` holds this
+    segment's own eq_* copies, written in place.  Returns (st', bl', br',
+    env_ends [2, Npkt, B] | None)."""
+    dev = bl.device
+    B = bl.shape[-1]
+    has_loud, has_env = static.loudness_on, static.leveller_on
+    lane = _f32_lane(static, p)
+    n_loud = 2 if has_loud else 0
+    mb = [[t for t in master_bands if t[0] == ch] for ch in range(2)]
+    nb = max(len(mb[0]), len(mb[1]))
+    loud = ()
+    if has_loud:               # [2, 6(, B)] rows padded to the 11 columns
+        pad = torch.zeros((2, 5) + tuple(p.loud_sva.shape[2:]), dtype=_F32,
+                          device=dev)
+        loud = tuple(torch.cat([p.loud_sva, pad], dim=1))
+    cf_ch, s_ch, kinds = [], [], []
+    for ch in range(2):
+        sprefix = ((st.loud_a[ch, 0], st.loud_b[ch, 0], st.loud_a[ch, 1],
+                    st.loud_b[ch, 1]) if has_loud else ())
+        cf, srows, kd = _f32_cascade(p, st, mb[ch], nb, lane, B, dev, loud,
+                                     sprefix)
+        if has_env:
+            srows.append(st.lev_env[ch])
+        cf_ch.append(cf)
+        s_ch.append(torch.stack(srows))
+        kinds.append(kd)
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    vals = ([p.loud_bypass[0].to(_F32), p.loud_bypass[1].to(_F32)]
+            if has_loud else [zero, zero])
+    vals += [p.lev[0], 1.0 - p.lev[0]] if has_env else [zero, zero]
+    # the same scalars for L and R: [4], or [4, B] per lane
+    scal = torch.stack([v.expand(B) if lane else v for v in vals])
+    y, env, sF = f32_cascades(
+        torch.stack([bl, br]), torch.stack(cf_ch), torch.stack(s_ch),
+        scal.expand(2, *scal.shape).contiguous(), kinds=kinds,
+        has_loud=has_loud, has_env=has_env, tc=int(sched[0]),
+        sched=static.schedule or None)
+    if has_loud:
+        st = st._replace(loud_a=sF[:, [0, 2]], loud_b=sF[:, [1, 3]])
+    finals = []
+    for t in master_bands:
+        r = 2 * n_loud + 2 * mb[t[0]].index(t)
+        finals.append((sF[t[0], r], sF[t[0], r + 1]))
+    st = _scatter_states(st, master_bands, finals)
+    return st, y[0], y[1], env
+
+
+def _f32_outputs(static: StaticChain, p, st, bl, br, out_bands, sched):
+    """PASS 3-5 of the scan lowering: the crossfeed kernel, the matrix mix
+    as torch ops (the JAX package's four cases, usb_audio.c:751-779), then
+    scan B as one float cascade call over the live outputs.  Returns (st',
+    bufs, one [Ttot, B] tensor an output)."""
+    if static.crossfeed_on:
+        bl, br, s4 = xf_f32(bl.contiguous(), br.contiguous(), p.xf,
+                            torch.cat([st.xf_lp, st.xf_ap]))
+        st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
+    bufs = []
+    for o in range(static.n_outputs):
+        if not static.output_enabled[o]:
+            bufs.append(torch.zeros_like(bl))
+            continue
+        gl, gr = p.matrix_gain[0, o], p.matrix_gain[1, o]
+        pl, pr = bl * gl, br * gr
+        bufs.append(torch.where(
+            (gl != 0.0) & (gr != 0.0), pl + pr,
+            torch.where(gl != 0.0, pl,
+                        torch.where(gr != 0.0, pr, torch.zeros_like(pr)))))
+        del pl, pr
+    if not out_bands:
+        return st, bufs
+    live = sorted({ch - C.CH_OUT_1 for ch, _b, _k in out_bands})
+    per_o = {o: [t for t in out_bands if t[0] - C.CH_OUT_1 == o]
+             for o in live}
+    nb = max(len(v) for v in per_o.values())
+    lane = p.eq_f32.dim() == 4
+    B, dev = bl.shape[-1], bl.device
+    cf_g, s_g, kinds = [], [], []
+    for o in live:
+        cf, srows, kd = _f32_cascade(p, st, per_o[o], nb, lane, B, dev)
+        cf_g.append(cf)
+        s_g.append(torch.stack(srows))
+        kinds.append(kd)
+    x = torch.stack([bufs[o] for o in live])
+    for o in live:                 # the stack holds them: free the planes
+        bufs[o] = None
+    y, _, sF = f32_cascades(
+        x, torch.stack(cf_g), torch.stack(s_g),
+        torch.zeros((len(live), 4, B) if lane else (len(live), 4),
+                    dtype=_F32, device=dev), kinds=kinds, tc=int(sched[0]),
+        sched=static.schedule or None)
+    del x
+    finals = []
+    for t in out_bands:
+        gi = live.index(t[0] - C.CH_OUT_1)
+        r = 2 * per_o[live[gi]].index(t)
+        finals.append((sF[gi, r], sF[gi, r + 1]))
+    st = _scatter_states(st, out_bands, finals)
+    for gi, o in enumerate(live):
+        bufs[o] = y[gi]
+    return st, bufs
+
+
 def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
-                  blocks, groups=None, wire_lanes=None):
+                  blocks=None, groups=None, wire_lanes=None):
     """One segment of the RP2350 float chain.
 
     ``p``/``state``: the port's ChainParams/ChainState of tensors on the
     device of ``x`` (int32 [n_packets, 2, block_size, B], or [2,
     sum(schedule), B] with a schedule).  ``preset_mute`` float32
-    [n_packets] (default ones).  ``blocks``: the block matrices
-    ``mxu.build_blocks(static, p, device)`` of these params, built once per
-    parameter set by the caller.  With ``groups`` = K (grouped serving),
-    the lanes are K contiguous groups, ``blocks`` holds each group's
-    matrices (``mxu.stack_groups``) and the leaves of ``p`` that differ
-    across groups carry a trailing lane axis; reduced wire folds are then
-    per group.  ``wire_lanes`` (int64 [B] of 0/1): only the lanes at 1
+    [n_packets] (default ones).  ``blocks``: on the block-matmul lowering
+    (``static.mxu``), the block matrices ``mxu.build_blocks(static, p,
+    device)`` of these params, built once per parameter set by the
+    caller; None on the scan lowering, where any leaf of ``p`` may carry a
+    trailing [B] stream axis (per-stream parameters) and the recurrences
+    run as the float cascade and crossfeed kernels (their plain versions
+    on CPU tensors).  With ``groups`` = K (grouped serving), the lanes are
+    K contiguous groups, ``blocks`` holds each group's matrices
+    (``mxu.stack_groups``) and the leaves of ``p`` that differ across
+    groups carry a trailing lane axis; reduced wire folds are then per
+    group.  ``wire_lanes`` (int64 [B] of 0/1): only the lanes at 1
     enter the reduced wire folds (a hetero server's bucket padding is
     left out).
 
@@ -395,7 +478,9 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     time-flat ([K, Ttot, B])."""
     from . import mxu
 
-    refuse(static)
+    if static.mxu and blocks is None:
+        raise ValueError("the block-matmul lowering needs its block "
+                         "matrices (blocks=mxu.build_blocks(...))")
     x2, sched, Npkt, Ttot = _segment_layout(static, x)
     B = x2.shape[-1]
     dev = x.device
@@ -415,15 +500,22 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     br = x2[1].to(_F32) * p.unpack_gain[1]
     del x2
 
-    # ---- loudness + master EQ (block matmuls) ----
-    if static.loudness_on or master_bands:
-        st, bl, br = mxu.chain_a(static, p, blocks, st, bl, br,
-                                 master_bands, Npkt, groups)
+    # ---- loudness + master EQ (+ the leveller envelope at packet ends):
+    # block matmuls, or scan A as the float cascade kernel ----
+    if static.mxu:
+        if static.loudness_on or master_bands:
+            st, bl, br = mxu.chain_a(static, p, blocks, st, bl, br,
+                                     master_bands, Npkt, groups)
+        if static.leveller_on:
+            env_l, env_r = mxu.env_packet_ends(static, p, st, bl, br, Npkt)
+    elif static.loudness_on or master_bands or static.leveller_on:
+        st, bl, br, env = _f32_master(static, p, st, bl, br, master_bands,
+                                      sched)
+        if static.leveller_on:
+            env_l, env_r = env[0], env[1]
 
-    # ---- PASS 2.5 leveller: envelope at packet ends, block phase ----
-    # (leveller.c:147-262)
+    # ---- PASS 2.5 leveller block phase (leveller.c:147-262) ----
     if static.leveller_on:
-        env_l, env_r = mxu.env_packet_ends(static, p, st, bl, br, Npkt)
         st = st._replace(lev_env=torch.stack([env_l[-1], env_r[-1]]))
         a_att, a_rel = p.lev[1], p.lev[2]
         thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
@@ -512,9 +604,13 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     peak_ml = bl.abs().amax(dim=0)
     peak_mr = br.abs().amax(dim=0)
 
-    # ---- PASS 3-5: crossfeed + matrix + per-output EQ ----
-    st, bufs = mxu.chain_b(static, p, blocks, st, bl, br, out_bands, Npkt,
-                           groups)
+    # ---- PASS 3-5: crossfeed + matrix + per-output EQ: block matmuls, or
+    # the crossfeed kernel, the matrix and scan B as the cascade kernel ----
+    if static.mxu:
+        st, bufs = mxu.chain_b(static, p, blocks, st, bl, br, out_bands,
+                               Npkt, groups)
+    else:
+        st, bufs = _f32_outputs(static, p, st, bl, br, out_bands, sched)
     del bl, br
 
     # output gains (usb_audio.c:885-894), per packet through the
@@ -729,7 +825,6 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
 
     Returns (state', outputs); the input state is not modified.  With a
     schedule, emit='full' outputs are time-flat ([K, Ttot, B])."""
-    refuse(static)
     x2, sched, Npkt, Ttot = _segment_layout(static, x)
     B = x2.shape[-1]
     nout = static.n_outputs

@@ -3,7 +3,7 @@
 
     python3 profile_torch.py [rp2350|rp2040|rp2040_hetero|rp2040_44k1|
                               rp2350_wire|rp2350_44k1|rp2350_hetero|
-                              rp2350_serve]
+                              rp2350_serve|rp2350_scan|rp2350_scan_hetero]
 
 Runs one full-width path on one CUDA card (emit "reduced", PDM on): the
 headline chain of the platform (default rp2350: the float chain; rp2040:
@@ -12,7 +12,10 @@ the Q28 chain; 48 kHz, full_chain_config) at 16384 streams x 128 packets of
 (wire=True, examples/serve.py's engine); *_hetero: a HeteroServer over 8
 configs of one structure (configs.hetero_variants) scattered over the same
 16384 streams; *_44k1: the chain at 44.1 kHz, 16384 streams x 130 packets
-on the 44/45 cadence (5733 samples).  It warms up, then traces one
+on the 44/45 cadence (5733 samples); rp2350_scan*: the float chain (and
+its hetero server) on the scan lowering (mxu=False: the float cascade and
+crossfeed kernels; the hetero server in the flat per-lane layout).  It
+warms up, then traces one
 segment with torch.profiler (CPU and CUDA activity).
 Prints the card, the segment's wall time, the number of device kernels and
 their summed time, the device's idle share (1 - kernel time / wall), and
@@ -53,7 +56,8 @@ from torch.autograd import DeviceType
 STREAMS, PACKETS, BLOCK = 16384, 128, 48
 SCHED441 = ((44,) * 9 + (45,)) * 13
 PATHS = ("rp2350", "rp2040", "rp2040_hetero", "rp2040_44k1", "rp2350_wire",
-         "rp2350_44k1", "rp2350_hetero", "rp2350_serve")
+         "rp2350_44k1", "rp2350_hetero", "rp2350_serve", "rp2350_scan",
+         "rp2350_scan_hetero")
 SERVE_DEPTH, SERVE_PACKETS = 8, 32
 # (library, a piece of the kernel's mangled name, label, the memory op
 # that counts the loop's samples, its count a sample): the cascade
@@ -70,13 +74,24 @@ _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
            "eq master lane_cf <10,1,1>", "ldg", 1),
           ("eq_q28", "lane_kernelILi10ELb0ELb0EE",
            "eq output lane_cf <10,0,0>", "ldg", 1),
-          ("xf_q28", "xf_kernel", "xf", "stg", 2))
+          ("xf_q28", "xf_kernel", "xf", "stg", 2),
+          ("eq_f32", "cascade_kernelILi10ELb1ELb1ELb0EE",
+           "eq_f32 master <10,1,1,0> (every kind's code)", "ldg", 1),
+          ("eq_f32", "cascade_kernelILi10ELb0ELb0ELb0EE",
+           "eq_f32 output <10,0,0,0> (every kind's code)", "ldg", 1),
+          ("xf_f32", "xf_kernel", "xf_f32", "stg", 2))
 
 
 def _stages(path):
     from dspi_tpu_torch.chain import mxu, pipeline
     from dspi_tpu_torch.core import fmath
 
+    if path.startswith("rp2350_scan"):
+        return [(pipeline, "f32_cascades", "float cascade kernel (2 calls)"),
+                (pipeline, "xf_f32", "float crossfeed kernel"),
+                (fmath, "smooth_det", "leveller packet loop (smooth_det)"),
+                (fmath, "det_div", "limiter reciprocal (det_div)"),
+                (pipeline, "pdm_segment", "PDM (mode prologue + kernel)")]
     if path.startswith("rp2350"):
         return [(mxu, "chain_a", "loudness + master EQ (block products)"),
                 (mxu, "env_packet_ends", "leveller envelope"),
@@ -230,7 +245,8 @@ def _path(path, dev):
     from dspi_tpu_torch.chain import Engine, HeteroServer
     from dspi_tpu_torch.configs import full_chain_config, hetero_variants
 
-    kw = dict(emit="reduced", pdm=True, pdm_fade=False, device=dev)
+    kw = dict(emit="reduced", pdm=True, pdm_fade=False, device=dev,
+              mxu="_scan" not in path)
     gen = torch.Generator(device=dev).manual_seed(7)
     shape = (PACKETS, 2, BLOCK, STREAMS)
     platform = Platform(path.split("_")[0])

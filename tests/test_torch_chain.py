@@ -286,17 +286,12 @@ def test_reduced_emit_is_the_full_emit_reduced():
                                 dict(schedule=(44, 45)),
                                 dict(q28=True, wire=True)])
 def test_refused_features(kw):
-    """The scan lowering (mxu=False) is refused, naming its ROADMAP.md
-    item.  The other cases were refused before the port ran them and now
-    run: the wire stage on both chains (tests/test_torch_wire.py holds its
-    words) and the float chain's packet schedule
+    """Every case was refused before the port ran it, and now runs: the
+    float chain's scan lowering (mxu=False; tests/test_torch_scan.py holds
+    its numbers), the wire stage on both chains (tests/test_torch_wire.py
+    holds its words) and the float chain's packet schedule
     (tests/test_torch_float_sched.py holds its numbers)."""
     platform = Platform.RP2040 if kw.pop("q28", False) else Platform.RP2350
-    if kw.get("mxu") is False:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
-            Engine(full_chain_config(platform), n_streams=2, device="cpu",
-                   **kw)
-        return
     rate = 44100.0 if "schedule" in kw else RATE
     eng = Engine(full_chain_config(platform, rate), n_streams=2,
                  device="cpu", pdm=False, **kw)
@@ -309,6 +304,10 @@ def test_refused_features(kw):
     assert torch.isfinite(out["out"].double()).all()
     if "schedule" in kw:
         assert out["out"].shape == (NOUT, 89, 2)
+    elif kw.get("mxu") is False:
+        assert not eng.static.mxu and eng.blocks is None
+        assert out["out"].shape == (2, NOUT, BLOCK, 2)
+        assert out["s24"].shape == (2, 8, BLOCK, 2)
     else:
         pairs = eng.static.n_spdif
         assert {f"wire{p}" for p in range(pairs)} <= set(out)

@@ -13,8 +13,11 @@ import torch
 from dspi_tpu_torch.kernels import LAUNCHES, pdm_cuda
 from dspi_tpu_torch.kernels.eq import q28_cascades_plain
 from dspi_tpu_torch.kernels.eq_cuda import q28_cascades
+from dspi_tpu_torch.kernels.eq_f32 import f32_cascades_plain
+from dspi_tpu_torch.kernels.eq_f32_cuda import f32_cascades
 from dspi_tpu_torch.kernels.pdm import pdm_words_plain
 from dspi_tpu_torch.kernels.xf_cuda import xf_q28, xf_q28_plain
+from dspi_tpu_torch.kernels.xf_f32_cuda import xf_f32, xf_f32_plain
 
 
 @pytest.mark.cuda
@@ -183,6 +186,129 @@ def test_xf_q28_kernel_per_lane_equals_plain(T, B):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
+
+
+def f32_rows(rng, shape):
+    """Float cascade coefficient rows [..., 11] of stable filters: SVF
+    columns (a1, a2, a3 from a tuning g and a damping k; mix terms in
+    +-1.5) and TDF2 columns (b0..b2 in +-0.6; a conjugate pole pair inside
+    radius 0.98), so that a row is stable whatever kind reads it."""
+    g = rng.uniform(0.02, 1.2, shape)
+    k = rng.uniform(0.4, 2.0, shape)
+    a1 = 1.0 / (1.0 + g * (g + k))
+    r = rng.uniform(0.5, 0.98, shape)
+    th = rng.uniform(0.05, 3.0, shape)
+    cols = [a1, g * a1, g * g * a1, *rng.uniform(-1.5, 1.5, (3,) + shape),
+            *rng.uniform(-0.6, 0.6, (3,) + shape), -2 * r * np.cos(th),
+            r * r]
+    return np.stack(cols, axis=-1).astype(np.float32)
+
+
+# band kinds of the float cascades: TDF2, SVF low-pass, high-pass,
+# peaking, shelf, and SKIP (a pass-through that pads)
+F32_KINDS = (1, 2, 3, 4, 5, 0)
+
+
+def f32_args(rng, G, T, B, nb, has_loud, has_env, lane, mixed=True):
+    """Inputs of the float cascades (kernels/eq_f32.py): kinds that differ
+    across cascades at a band (``mixed``) or the headline's for every
+    cascade; bypass flags in every pair, per cascade or lane by lane; on
+    cascade 0's first 4 lanes a silent input, zero band states and a tiny
+    envelope, so that the 1e-30 flush fires at a packet end.  Returns ((x, cf, s0, scal) as
+    CPU tensors, kinds)."""
+    head = (3, 4, 4, 5, 4, 4, 4, 1, 1, 1, 2, 5)
+    kinds = tuple(tuple(F32_KINDS[(g + j) % 6] if mixed else head[j]
+                        for j in range(nb)) for g in range(G))
+    nr = (2 if has_loud else 0) + nb
+    x = rng.uniform(-1.0, 1.0, (G, T, B)).astype(np.float32)
+    s0 = rng.uniform(-0.1, 0.1, (G, 2 * nr + has_env, B)).astype(np.float32)
+    if has_env:
+        s0[:, -1] = rng.uniform(0.0, 0.3, (G, B))
+        x[0, :, :4] = 0.0
+        s0[0, :, :4] = 0.0
+        s0[0, -1, :4] = 1e-31
+    cf = np.moveaxis(f32_rows(rng, (B, G, nr)), 0, -1) if lane \
+        else f32_rows(rng, (G, nr))
+    if lane:
+        byp = rng.integers(0, 2, (2, G, B)).astype(np.float32)
+        a = rng.uniform(0.99, 0.9999, (G, B)).astype(np.float32)
+    else:
+        byp = np.stack([np.arange(G) % 2, np.arange(G) // 2 % 2]).astype(
+            np.float32)
+        a = np.linspace(0.995, 0.9999, G).astype(np.float32)
+    scal = np.stack([byp[0], byp[1], a, np.float32(1.0) - a], axis=1)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(v))
+                 for v in (x, cf, s0, scal))
+    return args, kinds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane,sched", [
+    (False, None), (True, None), (False, (44, 45, 44, 45)),
+    (True, (45, 44, 1)), (False, (1,))],
+    ids=["scalar", "lane", "sched", "lane+sched_1", "T1"])
+@pytest.mark.parametrize("has_loud,has_env,nb,G,B,mixed", [
+    (True, True, 10, 2, 4100, False), (False, False, 10, 9, 197, False),
+    (True, True, 12, 6, 65, True), (False, True, 0, 2, 33, True),
+    (True, False, 3, 7, 64, True), (False, False, 6, 6, 1, True)])
+def test_eq_f32_kernel_equals_plain(has_loud, has_env, nb, G, B, mixed,
+                                    lane, sched):
+    """The float cascade kernel against the plain version, bit for bit:
+    the headline's master call (G=2, loudness, 10 bands, envelope) and
+    output call (G=9, 10 bands), and band kinds that differ across
+    cascades (SKIP rows among them); bypass flags in every pair, per
+    cascade or lane by lane; per-cascade and per-lane coefficients;
+    uniform packets, a 44/45 schedule, one with a 1-sample packet, T = 1;
+    the envelope's packet-end flush; ragged stream counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    tc = 48
+    T = sum(sched) if sched else 2 * tc
+    rng = np.random.default_rng(90 + nb + G)
+    args, kinds = f32_args(rng, G, T, B, nb, has_loud, has_env, lane, mixed)
+    kw = dict(kinds=kinds, has_loud=has_loud, has_env=has_env,
+              tc=1 if T == 1 else tc, sched=sched)
+    want = f32_cascades_plain(*args, **kw)
+    n0 = dict(LAUNCHES)
+    got = f32_cascades(*[a.cuda() for a in args], **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["eq_f32"] == n0.get("eq_f32", 0) + 1
+    assert LAUNCHES["eq_f32_lane"] == n0.get("eq_f32_lane", 0) + lane
+    assert LAUNCHES["eq_f32_sched"] == n0.get("eq_f32_sched", 0) + bool(sched)
+    for name, g, w in zip(("y", "env", "state"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert torch.isfinite(w).all(), name
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,lane", [(96, 197, False), (1, 5, False),
+                                      (48, 4100, True), (37, 197, True),
+                                      (5733, 300, False), (5, 64, True)])
+def test_xf_f32_kernel_equals_plain(T, B, lane):
+    """The float crossfeed kernel against the plain version, bit for bit,
+    with [3] and per-lane [3, B] coefficients, where T is a multiple of
+    its 16-sample tile or not, or shorter than one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    rng = np.random.default_rng(60 + B)
+    l, r = (rng.uniform(-1, 1, (T, B)).astype(np.float32) for _ in range(2))
+    shape = (B,) if lane else ()
+    coef = np.stack([rng.uniform(0.01, 0.3, shape),
+                     rng.uniform(0.6, 0.99, shape),
+                     rng.uniform(-0.9, -0.1, shape)]).astype(np.float32)
+    s4 = rng.uniform(-0.5, 0.5, (4, B)).astype(np.float32)
+    args = [torch.from_numpy(v) for v in (l, r, coef, s4)]
+    want = xf_f32_plain(*args)
+    n0 = LAUNCHES["xf_f32"]
+    got = xf_f32(*[a.cuda() for a in args])
+    torch.cuda.synchronize()
+    assert LAUNCHES["xf_f32"] == n0 + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
 @pytest.mark.cuda

@@ -227,8 +227,13 @@ def test_static_mismatch_rejected():
     bad.leveller.enabled = False
     with pytest.raises(ValueError, match="static structure"):
         eng.update_group(0, bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
+    # the flat per-lane layout of float configs needs the scan lowering
+    # (tests/test_torch_scan_grouped.py holds its numbers)
+    with pytest.raises(NotImplementedError, match="mxu=False"):
         GroupedEngine(cfgs, streams_per_group=G, layout="flat", device="cpu")
+    flat = GroupedEngine(cfgs, streams_per_group=G, layout="flat", mxu=False,
+                         pdm=False, device="cpu")
+    assert flat.blocks is None and flat.params.eq_f32.dim() == 4
 
 
 def test_hetero_server_matches_per_config_engines():

@@ -251,9 +251,14 @@ def test_refusals():
     srv = HeteroServer(floats, IDS, pdm=False, device="cpu")
     assert srv.process(_inputs(11, None, len(IDS))[0])["out"].shape == (
         NPKT, 9, BLOCK, len(IDS))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
+    # float configs take the flat layout on the scan lowering only
+    with pytest.raises(NotImplementedError, match="mxu=False"):
         GroupedEngine(floats, streams_per_group=G, layout="flat",
                       device="cpu")
+    fscan = HeteroServer(floats, IDS, mxu=False, pdm=False, device="cpu")
+    assert fscan.grouped.layout == "flat" and fscan.grouped.blocks is None
+    assert fscan.process(_inputs(12, None, len(IDS))[0])["out"].shape == (
+        NPKT, 9, BLOCK, len(IDS))
     with pytest.raises(ValueError, match="unknown layout"):
         GroupedEngine(cfgs, streams_per_group=G, layout="scan", device="cpu")
     with pytest.raises(ValueError, match="out of range"):

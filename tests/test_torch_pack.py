@@ -108,18 +108,25 @@ def test_from_numpy_round_trip(name):
 
 
 def test_per_stream_params_refused():
-    """Per-stream float trees are refused (their block matrices need
-    homogeneous coefficients: the scan lowering, ROADMAP.md item 7;
-    grouped float serving takes per-group trees,
-    tests/test_torch_float_grouped.py); per-stream Q28 trees load."""
+    """Per-stream float trees are refused on a block-matmul static (its
+    block matrices need homogeneous coefficients; grouped float serving
+    there takes per-group trees, tests/test_torch_float_grouped.py) and
+    load on a scan static (tests/test_torch_scan_grouped.py runs them);
+    per-stream Q28 trees load."""
     cfg = bench.full_chain_config(JPlatform.RP2350)
     jd = jderive(cfg)
     jst = jpack.build_static(jd, block_size=48)
     multi = jpack.build_params_multi([jd, jd], jst)
     multi = multi._replace(xf=np.stack([multi.xf, multi.xf], -1))
     js = jpack.init_state(jst, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
-        pack.from_numpy(multi, js, "cpu")
+    tst = pack.build_static(derive(_convert(cfg)), block_size=48)
+    assert tst.mxu and not jst.mxu
+    with pytest.raises(ValueError, match="scan path"):
+        pack.from_numpy(multi, js, "cpu", tst)
+    p, _ = pack.from_numpy(multi, js, "cpu",
+                           dataclasses.replace(tst, mxu=False))
+    assert p.xf.shape == (3, 2)
+    _eq_tree(pack.to_numpy(p), multi)
     with pytest.raises(ValueError, match="scan path"):
         pack.build_params_multi([derive(_convert(cfg))], pack.build_static(
             derive(_convert(cfg)), block_size=48))
