@@ -7,8 +7,12 @@ Phases (each prints one line; any failure exits non-zero):
 
   1. the card: name and power limit (nvidia-smi)
   2. build every CUDA kernel from dspi_tpu_torch/kernels/csrc/ (nvcc, one
-     process per source, in parallel), with each source's register and
-     spill report from ptxas
+     process per library, all in parallel: one a source, and for the
+     float cascade kernel one a band-kinds signature that the phases
+     below launch), with each source's register and spill report from
+     ptxas and each float cascade instance's registers, spills and
+     seconds; then the first use of a signature none of them has (the
+     output call's after a SET_EQ changes a band's type), timed alone
   3. PDM kernel vs its plain PyTorch version on the card: 4100 streams (a
      ragged edge), three 96-sample segments with per-lane enable flips
      (fade-out, stop, restart, mid-fade re-enable); words and all 16 state
@@ -36,9 +40,10 @@ Phases (each prints one line; any failure exits non-zero):
      cascades, 10 bands) and band kinds that differ across cascades (SKIP
      rows among them), in its scalar, per-lane, 44/45-schedule and
      per-lane + 1-sample-packet-schedule modes, with the envelope's
-     packet-end flush firing; the float crossfeed over three chained
-     segments, the last with per-lane coefficients.  A mismatch prints
-     the largest gap and fails
+     packet-end flush firing, and the master call's at full length (6144
+     samples); the float crossfeed over three chained segments, the last
+     with per-lane coefficients.  A mismatch prints the largest gap and
+     fails
   6. the float main path at full width: Engine on the headline RP2350
      chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
      samples with state carried and a fresh input each (x ^ i); launch
@@ -99,11 +104,13 @@ Phases (each prints one line; any failure exits non-zero):
      RP2350 configs with mxu=False, the flat per-lane layout over 17,408
      lanes (float_scan_hetero; both cascade calls per lane); each kernel
      call of one more segment timed alone beside its bound (the pinned
-     float operation counts, F32_BAND_OPS and XF_F32_OPS, or the bytes)
-     and held bit for bit against the plain version on the CPU over 128
-     of its streams.  Then card vs CPU on the scan engine at 8 streams,
-     48 kHz (3 segments of 4 packets) and 44.1 kHz (2 segments of 441
-     samples): float_close
+     float operation counts, F32_BAND_OPS and XF_F32_OPS, or the bytes),
+     the float cascade calls with their instances' registers, resident
+     warps, waves and sample-loop SASS a sample (failing on a branch in
+     that loop other than its back edge), and held bit for bit against
+     the plain version on the CPU over 128 of its streams.  Then card vs
+     CPU on the scan engine at 8 streams, 48 kHz (3 segments of 4
+     packets) and 44.1 kHz (2 segments of 441 samples): float_close
  14. the serving entry point (dspi_tpu_torch.serve, examples/serve.py's
      twin) at full width, as a user runs it: serve_chained at 16384
      streams, batches of 8 chained segments of 32 packets (device wire
@@ -198,11 +205,28 @@ EQ_LANE_OPS = {(10, True, True): {"alu_only": 109.0, "arith": 361.0},
 FP32_PER_SM_CLOCK = 128
 F32_BAND_OPS = {0: 0, 1: 9, 2: 12, 3: 15, 4: 14, 5: 17}
 F32_LOUD_OPS, F32_ENV_OPS, XF_F32_OPS = 17, 4, 18
-# the float cascade instances the scan paths launch, by call
-F32_INSTANCES = {"master": "cascade_kernelILi10ELb1ELb1ELb0EE",
-                 "output": "cascade_kernelILi10ELb0ELb0ELb0EE",
-                 "master per lane": "cascade_kernelILi10ELb1ELb1ELb1EE",
-                 "output per lane": "cascade_kernelILi10ELb0ELb0ELb1EE"}
+# The headline's band kinds (its first 10: HP, peaking x 2, shelf,
+# peaking x 3, TDF2 x 3, the signature of all 11 channels), and the float
+# cascade instances the scan paths launch at them: (loudness and envelope,
+# per lane) by call.  Each is a library of its own (eq_f32_cuda.signature).
+EQF_HEAD = (3, 4, 4, 5, 4, 4, 4, 1, 1, 1, 2, 5)
+F32_INSTANCES = {"master": (True, False), "output": (False, False),
+                 "master per lane": (True, True),
+                 "output per lane": (False, True)}
+# band kinds no phase builds: the output call's after a SET_EQ turns its
+# first band from high-pass to peaking (phase_build times that build)
+F32_NEW_KINDS = (4, 4, 4, 5, 4, 4, 4, 1, 1, 1)
+# each float cascade instance phase_build built: {signature: registers,
+# spill bytes, seconds}
+F32_BUILT: dict = {}
+
+
+def f32_instance_signature(label: str) -> int:
+    """The packed signature of one of F32_INSTANCES."""
+    from dspi_tpu_torch.kernels import eq_f32_cuda
+
+    loud, lane = F32_INSTANCES[label]
+    return eq_f32_cuda.signature(EQF_HEAD[:10], loud, loud, lane)
 
 
 def fail(msg: str) -> None:
@@ -279,19 +303,30 @@ def sm_clocks_per_s() -> float:
 
 def phase_build() -> dict:
     """Build every kernel; print per source its kernel count, most
-    registers and spill bytes, and the registers of the cascade kernels'
-    instances that the paths launch; return that summary."""
+    registers and spill bytes, the registers of the cascade kernels'
+    instances that the paths launch, and each float cascade instance;
+    then time the build of one new float cascade signature alone; return
+    that summary."""
     import re
 
-    from dspi_tpu_torch.kernels import build
+    from dspi_tpu_torch.kernels import build, eq_f32_cuda
 
     t0 = time.perf_counter()
-    report = build.build_all()
+    sigs = {build.lib_key("eq_f32", build.SRC_DIR, eq_f32_cuda.defines(s)): s
+            for s in eqf_signatures()}
+    report = build.build_all(variants=[
+        ("eq_f32", build.SRC_DIR, eq_f32_cuda.defines(s))
+        for s in sigs.values()])
     summary = {}
     for name, r in report.items():
         regs = build.registers(r["log"])
         spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill",
                                                r["log"]))
+        if name in sigs:
+            F32_BUILT[sigs[name]] = {"registers": max(regs.values()),
+                                     "spill_bytes": spill,
+                                     "seconds": round(r["seconds"], 1)}
+            continue
         summary[name] = {"kernels": len(regs),
                          "max_registers": max(regs.values()),
                          "spill_bytes": spill,
@@ -304,12 +339,32 @@ def phase_build() -> dict:
                              "cascade_kernelILi10ELb0ELb0EE",
                              "lane_kernelILi10ELb1ELb1EE",
                              "lane_kernelILi10ELb0ELb0EE")}
-        if name == "eq_f32":
-            summary[name]["registers"] = {
-                label: next(n for f, n in regs.items() if inst in f)
-                for label, inst in F32_INSTANCES.items()}
+    if F32_BUILT:
+        summary["eq_f32"] = {
+            "instances": len(F32_BUILT),
+            "max_registers": max(v["registers"] for v in F32_BUILT.values()),
+            "spill_bytes": sum(v["spill_bytes"] for v in F32_BUILT.values()),
+            "seconds": max(v["seconds"] for v in F32_BUILT.values()),
+            "registers": {label: F32_BUILT.get(
+                f32_instance_signature(label), {}).get("registers")
+                for label in F32_INSTANCES}}
     print(f"build: {time.perf_counter() - t0:.1f} s; "
           f"{summary or 'nothing (cached)'}", flush=True)
+    for sig, v in F32_BUILT.items():
+        kinds, loud, env, lane = eq_f32_cuda.unpack_signature(sig)
+        print(f"  eq_f32 instance {sig:#x} (kinds {kinds}, loudness "
+              f"{loud}, envelope {env}, per lane {lane}): {v}", flush=True)
+    new = eq_f32_cuda.signature(F32_NEW_KINDS, False, False, False)
+    cached = build.lib_path("eq_f32", build.SRC_DIR,
+                            eq_f32_cuda.defines(new)).exists()
+    t1 = time.perf_counter()
+    eq_f32_cuda.libraries([new])
+    one = time.perf_counter() - t1
+    print(f"  first use of a new float cascade signature {new:#x} (kinds "
+          f"{F32_NEW_KINDS}): built and loaded in {one:.1f} s"
+          f"{' (was cached)' if cached else ''}", flush=True)
+    summary.setdefault("eq_f32", {})["one_instance_build_s"] = (
+        None if cached else one)
     return summary
 
 
@@ -838,7 +893,27 @@ EQF_CASES = ((True, True, 10, 2, False), (False, False, 10, 9, False),
              (True, False, 5, 3, True))
 EQF_MODES = {"scalar": (False, None), "lane": (True, None),
              "sched": (False, SCHED), "lane+sched": (True, SCHED1)}
-EQF_HEAD = (3, 4, 4, 5, 4, 4, 4, 1, 1, 1, 2, 5)   # the headline's kinds
+
+
+def _eqf_kinds(G: int, nb: int, mixed: bool) -> tuple:
+    """The band kinds of a phase_eq_f32 case: the headline's for every
+    cascade, or kinds that differ across the cascades (SKIP among them)."""
+    return tuple(tuple((1, 2, 3, 4, 5, 0)[(g + j) % 6] if mixed
+                       else EQF_HEAD[j] for j in range(nb))
+                 for g in range(G))
+
+
+def eqf_signatures() -> list:
+    """Every float cascade signature this script launches: those of
+    phase_eq_f32's cases in each mode and of the scan paths' calls."""
+    from dspi_tpu_torch.kernels import eq_f32_cuda
+
+    sigs = [f32_instance_signature(label) for label in F32_INSTANCES]
+    for lane, _ in EQF_MODES.values():
+        for has_loud, has_env, nb, G, mixed in EQF_CASES:
+            sigs += [sig for sig, _ in eq_f32_cuda.split(
+                _eqf_kinds(G, nb, mixed), has_loud, has_env, lane)]
+    return list(dict.fromkeys(sigs))
 
 
 def _eqf_args(gen, G, T, B, nb, has_loud, has_env, lane, mixed, dev):
@@ -847,9 +922,7 @@ def _eqf_args(gen, G, T, B, nb, has_loud, has_env, lane, mixed, dev):
     envelope alpha a cascade, and on cascade 0's first 4 lanes a silent
     input and zero states under a 1e-31 envelope, so that the 1e-30
     flush fires at a packet end."""
-    kinds = tuple(tuple((1, 2, 3, 4, 5, 0)[(g + j) % 6] if mixed
-                        else EQF_HEAD[j] for j in range(nb))
-                  for g in range(G))
+    kinds = _eqf_kinds(G, nb, mixed)
     nr = (2 if has_loud else 0) + nb
     x = _uniform(gen, -1.0, 1.0, (G, T, B), dev).float()
     s0 = _uniform(gen, -0.1, 0.1, (G, 2 * nr + has_env, B), dev).float()
@@ -873,7 +946,8 @@ def _eqf_args(gen, G, T, B, nb, has_loud, has_env, lane, mixed, dev):
 
 def phase_eq_f32(dev) -> dict:
     """Float cascade kernel vs its plain version on the card, bit for bit,
-    every case of EQF_CASES in every mode of EQF_MODES; returns the
+    every case of EQF_CASES in every mode of EQF_MODES, then the master
+    call's case (the headline's signature) at full length; returns the
     (plain ms, kernel ms) of the master and output cases per mode."""
     from dspi_tpu_torch.kernels.eq_f32 import f32_cascades_plain
     from dspi_tpu_torch.kernels.eq_f32_cuda import f32_cascades
@@ -881,38 +955,42 @@ def phase_eq_f32(dev) -> dict:
     B = 4100
     gen = torch.Generator(device=dev).manual_seed(61)
     times = {}
-    for mode, (lane, sched) in EQF_MODES.items():
-        T = sum(sched) if sched else 2 * BLOCK
-        for has_loud, has_env, nb, G, mixed in EQF_CASES:
-            a, kinds = _eqf_args(gen, G, T, B, nb, has_loud, has_env, lane,
-                                 mixed, dev)
-            kw = dict(kinds=kinds, has_loud=has_loud, has_env=has_env,
-                      tc=BLOCK, sched=sched)
-            got = f32_cascades(*a, **kw)           # loads the kernel
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            want = f32_cascades_plain(*a, **kw)
-            ev[1].record()
-            ev[2].record()
-            f32_cascades(*a, **kw)
-            ev[3].record()
-            torch.cuda.synchronize()
-            if not mixed:
-                times[f"{mode} G={G}"] = (ev[0].elapsed_time(ev[1]),
-                                          ev[2].elapsed_time(ev[3]))
-            for name, u, v in zip(("y", "env", "state"), got, want):
-                if (u is None) != (v is None) or (
-                        u is not None and not torch.equal(u, v)):
-                    gap = "" if u is None or v is None else max_gap(u, v)
-                    fail(f"float cascade kernel != plain version ({name}) "
-                         f"in mode {mode} for loudness={has_loud} "
-                         f"envelope={has_env} nb={nb} G={G}: largest gap "
-                         f"{gap}")
-            if has_env and not bool((want[1][0, :, :4] == 0).all()):
-                fail("float cascade phase: the envelope flush never fired")
+    cases = [(mode, lane, sched, sum(sched) if sched else 2 * BLOCK, case)
+             for mode, (lane, sched) in EQF_MODES.items()
+             for case in EQF_CASES]
+    cases.append(("full", False, None, PACKETS * BLOCK, EQF_CASES[0]))
+    for mode, lane, sched, T, case in cases:
+        has_loud, has_env, nb, G, mixed = case
+        a, kinds = _eqf_args(gen, G, T, B, nb, has_loud, has_env, lane,
+                             mixed, dev)
+        kw = dict(kinds=kinds, has_loud=has_loud, has_env=has_env,
+                  tc=BLOCK, sched=sched)
+        got = f32_cascades(*a, **kw)               # loads the kernel
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        want = f32_cascades_plain(*a, **kw)
+        ev[1].record()
+        ev[2].record()
+        f32_cascades(*a, **kw)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if not mixed:
+            times[f"{mode} G={G}"] = (ev[0].elapsed_time(ev[1]),
+                                      ev[2].elapsed_time(ev[3]))
+        for name, u, v in zip(("y", "env", "state"), got, want):
+            if (u is None) != (v is None) or (
+                    u is not None and not torch.equal(u, v)):
+                gap = "" if u is None or v is None else max_gap(u, v)
+                fail(f"float cascade kernel != plain version ({name}) "
+                     f"in mode {mode} for loudness={has_loud} "
+                     f"envelope={has_env} nb={nb} G={G} T={T}: largest "
+                     f"gap {gap}")
+        if has_env and not bool((want[1][0, :, :4] == 0).all()):
+            fail("float cascade phase: the envelope flush never fired")
     print(f"eq_f32: kernel == plain bit for bit on {B} streams in modes "
           f"{list(EQF_MODES)} (schedules {SCHED}, {SCHED1}) for every case "
-          f"of {list(EQF_CASES)}; plain / kernel ms: "
+          f"of {list(EQF_CASES)}, and the first case at {PACKETS * BLOCK} "
+          f"samples (mode full); plain / kernel ms: "
           f"{ {m: [round(v, 3) for v in t] for m, t in times.items()} }",
           flush=True)
     return times
@@ -1048,6 +1126,53 @@ def bound(ops: dict, nbytes) -> tuple[float, str, str]:
             f"{sm_clocks_per_s():.4e} SM clocks/s; {nbytes:.4e} bytes")
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", text)
+
+
+@functools.lru_cache(maxsize=None)
+def eqf_instance(sig: int) -> dict:
+    """One float cascade instance: its spills and build seconds
+    (phase_build), threads a block, registers a thread and resident
+    blocks an SM (the CUDA runtime), and its sample loop's SASS a sample
+    (one cp.async a step).  Fails if that loop branches more than once a
+    sample: its back edge is the only branch it may have."""
+    from dspi_tpu_torch.kernels import build, eq_f32_cuda
+
+    occ = eq_f32_cuda.occupancy(eq_f32_cuda.libraries([sig])[sig])
+    c = build.loop_counts(build.sass("eq_f32", build.SRC_DIR,
+                                     eq_f32_cuda.defines(sig)),
+                          "cascade_kernel")
+    n = build.per_sample(c, "ldgsts", 1)["samples_per_iteration"]
+    ops = build.opcodes_per_sample(c, n)
+    per = {"instructions": c["instructions"] / n,
+           **{op.lower(): ops.get(op, 0.0) for op in (
+               "FMUL", "FADD", "BRA", "ISETP", "LDS", "LDGSTS", "LDG",
+               "STG")},
+           "stall": None if c["stall"] is None else c["stall"] / n,
+           "steps_per_iteration": n}
+    if per["bra"] > 1:
+        fail(f"float cascade instance {sig:#x}: {per['bra']} branches a "
+             f"sample in its sample loop")
+    return {"signature": f"{sig:#x}", **F32_BUILT.get(sig, {}), **occ,
+            "warps_per_sm": occ["blocks_per_sm"] * occ["threads"] // 32,
+            "sass_per_sample": per}
+
+
+def eqf_instances(a, k) -> list:
+    """The instances one float cascade call launches (eqf_instance), each
+    with its cascades and its grid's waves on this card."""
+    from dspi_tpu_torch.kernels import eq_f32_cuda
+
+    B = a[0].shape[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for sig, idx in eq_f32_cuda.split(k["kinds"], bool(k.get("has_loud")),
+                                      bool(k.get("has_env")),
+                                      a[1].dim() == 4):
+        inst = dict(eqf_instance(sig))
+        blocks = len(idx) * -(-B // inst["threads"])
+        rows.append({**inst, "cascades": len(idx),
+                     "waves": blocks / (inst["blocks_per_sm"] * sms)})
+    return rows
 
 
 def _eqf_work(a, k) -> tuple[dict, int]:
@@ -1186,7 +1311,8 @@ def record_calls(eng, x, label: str,
             extra = {"G": a[0].shape[0], "has_loud": bool(k.get("has_loud")),
                      "has_env": bool(k.get("has_env")),
                      "lane": a[1].dim() == 4, "sched": bool(k.get("sched")),
-                     "kinds": [list(r) for r in k["kinds"]]}
+                     "kinds": [list(r) for r in k["kinds"]],
+                     "instances": eqf_instances(a, k)}
         elif kind == "xff":
             T, B = a[0].shape
             ops = {"fp32": XF_F32_OPS * T * B}
@@ -1205,6 +1331,8 @@ def record_calls(eng, x, label: str,
         pin = r.get("pinned", pinned.get(r["kind"]))
         sass = (f"; this build's SASS a sample {r['sass_per_sample']} "
                 f"(pinned {pin})" if pin else "")
+        if r["kind"] == "eqf":
+            sass = f"; instances {r['instances']}"
         print(f"  {r['kind']} {r['shape']}: kernel {r['ms']:.3f} ms, bound "
               f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['work']})"
               f"{sass}", flush=True)
@@ -1976,6 +2104,9 @@ def main() -> None:
                + eqf_times["scalar G=9"][1],
                "phase_ms_by_mode": eqf_times,
                "registers": built.get("eq_f32", {}).get("registers"),
+               "instances_built": built.get("eq_f32", {}).get("instances"),
+               "one_instance_build_s": built.get("eq_f32", {}).get(
+                   "one_instance_build_s"),
                "pinned_ops": {"band": F32_BAND_OPS, "loudness": F32_LOUD_OPS,
                               "envelope": F32_ENV_OPS},
                **_path_rows(f_scan["calls"], "eqf"),

@@ -6,14 +6,20 @@ revisions of the same sources, in turns, on one NVIDIA card.
 
 Each OTHER_CSRC_DIR holds a ``pdm.cu``, an ``xf_q28.cu`` and an
 ``eq_q28.cu`` with the same C entry points as
-``dspi_tpu_torch/kernels/csrc/`` (for example the parent commit's, unpacked
-with ``git archive`` into a git-ignored directory).  Every source is built
-with the port's nvcc flags, all at once, and each build is launched
-through its wrapper's own ``bind`` and ``launch`` (those that
-``pdm_words``, ``xf_q28`` and ``q28_cascades`` use).  Then, per kernel and
-shape, the repo's build and each other build run in turns (other, repo,
-repo, other; CUDA events, 5 calls each after a warm-up) on the same
-inputs, and every build's outputs and state are held equal to the repo's:
+``dspi_tpu_torch/kernels/csrc/``, and an ``eq_f32.cu`` with the float
+cascade wrapper of its own revision beside it (``../eq_f32_cuda.py``):
+for example the parent commit's ``dspi_tpu_torch/kernels``, unpacked with
+``git archive`` into a git-ignored directory.  Every source is built with
+the port's nvcc flags, all at once, and each build is launched through
+its wrapper's own ``bind`` and ``launch`` (those that ``pdm_words``,
+``xf_q28`` and ``q28_cascades`` use; for ``eq_f32`` its own revision's
+wrapper, imported from beside it, since the C entry changed with the
+one-library-a-signature design).  Then, per kernel and shape, the repo's
+build and each other build run in turns (other, repo, repo, other; CUDA
+events, 5 calls each after a warm-up) on the same inputs, and every
+build's outputs and state are held equal to the repo's.  A kernel whose
+source is the same file in every other directory is left out (nothing
+differs to compare):
 
   pdm       6144 x 16384 and 6144 x 17408 (all streams modulating)
   xf_q28    6144 x 16384 with [3] and with per-lane [3, B] coefficients
@@ -23,17 +29,28 @@ inputs, and every build's outputs and state are held equal to the repo's:
             (the HeteroServer layout) and with random per-lane columns;
             the q28 path's two scalar-mode calls at 6144 x 16384; the
             44.1 kHz path's two schedule-mode calls at 5733 x 16384
+  eq_f32    the float scan paths' master (G=2, loudness + 10 bands +
+            envelope) and output (G=9, 10 bands) calls at the headline's
+            band kinds: per cascade at 6144 x 16384, per lane at 6144 x
+            17408 with columns uniform over 8 buckets of 2176 lanes and
+            with random per-lane columns, and at 5733 x 16384 on the
+            44.1 kHz schedule
 
 It prints the card's name and power limit, each build's sample-loop SASS
 counts a sample (build.loop_counts / build.per_sample; the cascade
-kernel's for each instance the paths launch) and registers, one line per
+kernels' for each instance the paths launch, the float cascades' with
+FMUL, FADD, BRA and ISETP a sample, registers, resident blocks an SM and
+waves) and registers, one line per
 kernel and shape, and last one JSON object with every number; the same
 object goes to chiprun_out/compare_kernels.json.
 """
 
 from __future__ import annotations
 
+import hashlib
+import importlib.util
 import json
+import math
 import re
 import subprocess
 import sys
@@ -59,6 +76,85 @@ LOOPS = {
                                   ("scalar", "cascade_kernel", False))
         for loud in (True, False)])}
 SCHED441 = ((44,) * 9 + (45,)) * 13
+# the float scan paths' cascade calls: the headline's band kinds (HP, 3
+# peaking, shelf, peaking, TDF2 x 3 around it) and (label, cascades, with
+# the loudness rows and the envelope)
+EQF_HEAD = (3, 4, 4, 5, 4, 4, 4, 1, 1, 1)
+EQF_CALLS = (("master", 2, True), ("output", 9, False))
+
+
+def _eqf_module(src_dir: Path):
+    """The float cascade wrapper of ``src_dir``'s revision: the repo's, or
+    the ``eq_f32_cuda.py`` beside another csrc/, imported into this repo's
+    kernels package so that its relative imports resolve here."""
+    from dspi_tpu_torch.kernels import build, eq_f32_cuda
+
+    if src_dir == build.SRC_DIR:
+        return eq_f32_cuda
+    path = src_dir.parent / "eq_f32_cuda.py"
+    name = ("dspi_tpu_torch.kernels._eq_f32_cuda_"
+            + hashlib.sha256(str(path).encode()).hexdigest()[:8])
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, path)
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def _eqf_builds(src_dir: Path) -> list:
+    """(label, lane, loudness, signature or None, the library's defines)
+    of the four float cascade instances the scan paths launch, as
+    ``src_dir``'s revision builds them: one library a signature, or (up to
+    commit 286fbb3) one library of run-time kinds, its instances
+    cascade_kernel<NB, LOUD, ENV, LANE>."""
+    mod = _eqf_module(src_dir)
+    rows = []
+    for lane in (False, True):
+        for label, _, loud in EQF_CALLS:
+            sig = (mod.signature(EQF_HEAD, loud, loud, lane)
+                   if hasattr(mod, "libraries") else None)
+            rows.append((f"{label}{' per lane' if lane else ''}", lane, loud,
+                         sig, mod.defines(sig) if sig is not None else ()))
+    return rows
+
+
+def _eqf_sass(src_dir: Path, lane: bool, loud: bool, sig, defines) -> dict:
+    """Sample-loop SASS counts a sample of one float cascade instance."""
+    from dspi_tpu_torch.kernels import build
+
+    text = build.sass("eq_f32", src_dir, defines)
+    if sig is None:          # run-time kinds: one word loaded a sample
+        kernel, op = (f"cascade_kernelILi10ELb{int(loud)}ELb{int(loud)}"
+                      f"ELb{int(lane)}EE", "ldg")
+    else:                    # staged input: one cp.async a step
+        kernel, op = "cascade_kernel", "ldgsts"
+    c = build.loop_counts(text, kernel)
+    ps = build.per_sample(c, op, 1)
+    n = ps["samples_per_iteration"]
+    ops = build.opcodes_per_sample(c, n)
+    return {"kernel": kernel, "instructions": c["instructions"] / n,
+            "arith": ps["arith"],
+            **{k.lower(): ops.get(k, 0.0) for k in (
+                "FMUL", "FADD", "BRA", "ISETP", "LDG", "LDS", "LDGSTS",
+                "STG")},
+            "stall_a_sample": None if c["stall"] is None else c["stall"] / n,
+            "samples_per_iteration": n}
+
+
+def _eqf_runner(src_dir: Path, args: list, kw: dict):
+    """A closure running one float cascade call through ``src_dir``'s
+    revision's own wrapper."""
+    from dspi_tpu_torch.kernels import build
+
+    mod = _eqf_module(src_dir)
+    if not hasattr(mod, "libraries"):       # one library, run-time kinds
+        fn = mod.bind(build.load("eq_f32", src_dir))
+        return lambda: mod.launch(fn, *args, **kw)
+    plan = mod.split(kw["kinds"], kw["has_loud"], kw["has_env"],
+                     args[1].dim() == 4)
+    libs = mod.libraries([sig for sig, _ in plan], src_dir)
+    return lambda: mod.launch(libs, plan, *args, has_env=kw["has_env"],
+                              tc=kw["tc"], sched=kw.get("sched"))
 
 
 def _runner(name: str, src_dir: Path, args: list, kw: dict):
@@ -92,6 +188,7 @@ def _ms(run, reps: int = 5) -> float:
 
 def _cases(dev):
     gen = torch.Generator(device=dev).manual_seed(23)
+    yield from _eqf_cases(dev)
 
     def rand(shape, lo=-(1 << 28), hi=1 << 28):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
@@ -150,6 +247,49 @@ def _eq_cases(dev, rand):
                *call(g, sum(SCHED441), b, master, (), sched=SCHED441))
 
 
+def _eqf_cases(dev):
+    """The float cascade calls of the scan paths: (kernel, label, args,
+    keywords)."""
+    from chip_smoke import f32_rows
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def uniform(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    def call(g, t, b, master, lanes, sched=None):
+        nr = (2 if master else 0) + len(EQF_HEAD)
+        if lanes:        # [G, nr, 11, B], columns repeated over buckets
+            cf = f32_rows(gen, (g, nr, lanes[0]), dev).movedim(-1, 2)
+            cf = cf.repeat_interleave(b // lanes[0], dim=-1)
+            flags = (torch.rand((2, g, lanes[0]), generator=gen, device=dev)
+                     < 0.5).float().repeat_interleave(b // lanes[0], dim=-1)
+            a = uniform(0.99, 0.9999, (g, lanes[0])).repeat_interleave(
+                b // lanes[0], dim=-1)
+        else:            # no bypass: every row does its work
+            cf = f32_rows(gen, (g, nr), dev)
+            flags = torch.zeros((2, g), device=dev)
+            a = torch.linspace(0.995, 0.9999, g, device=dev)
+        scal = torch.stack([flags[0], flags[1], a, 1.0 - a], dim=1)
+        s0 = uniform(-0.1, 0.1, (g, 2 * nr + master, b))
+        if master:
+            s0[:, -1] = uniform(0.0, 0.3, (g, b))
+        args = [uniform(-1.0, 1.0, (g, t, b)), cf.contiguous(), s0,
+                scal.contiguous()]
+        return args, dict(kinds=(EQF_HEAD,) * g, has_loud=master,
+                          has_env=master, tc=48, sched=sched)
+
+    for b, lanes, cols in ((16384, (), "per cascade"),
+                           (17408, (8,), "bucket-uniform 8x2176"),
+                           (17408, (17408,), "random per lane")):
+        for label, g, master in EQF_CALLS:
+            yield ("eq_f32", f"{label} {T}x{b} {cols}",
+                   *call(g, T, b, master, lanes))
+    for label, g, master in EQF_CALLS:
+        yield ("eq_f32", f"sched {label} {sum(SCHED441)}x16384",
+               *call(g, sum(SCHED441), 16384, master, (), SCHED441))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -158,12 +298,24 @@ def main() -> None:
         raise SystemExit(__doc__)
     from dspi_tpu_torch.kernels import build
 
+    # the kernels whose source differs in some other directory
+    kernels = [k for k in (*LOOPS, "eq_f32")
+               if any(build.lib_path(k, d) != build.lib_path(k)
+                      for d in others)]
+    loops = {k: v for k, v in LOOPS.items() if k in kernels}
+    print(f"kernels whose sources differ: {kernels}", flush=True)
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     dirs = {"repo": build.SRC_DIR, **{str(p): p for p in others}}
-    report = build.build_all(tuple(LOOPS), tuple(dirs.values()))
+    eqf = ({label: _eqf_builds(d) for label, d in dirs.items()}
+           if "eq_f32" in kernels else {})
+    report = build.build_all(
+        tuple(loops), tuple(dirs.values()),
+        {("eq_f32", dirs[label], defs) for label, rows in eqf.items()
+         for *_, defs in rows})
     regs = {}
     for key, r in report.items():
         regs[key] = build.registers(r["log"])
@@ -172,11 +324,11 @@ def main() -> None:
               f"spill bytes {spill}, {r['seconds']:.1f} s", flush=True)
     result = {"card": card, "sass": {}, "runs": []}
     for label, d in dirs.items():
-        for name, (_, loops) in LOOPS.items():
+        for name, (_, loops_of) in loops.items():
             text = build.sass(name, d)
-            built = regs.get(name if label == "repo" else f"{d}/{name}", {})
-            for loop, kernels, op, per in loops:
-                kernel = next(k for k in kernels if k in text)
+            built = regs.get(build.lib_key(name, d), {})
+            for loop, kernels_of, op, per in loops_of:
+                kernel = next(k for k in kernels_of if k in text)
                 c = build.loop_counts(text, kernel)
                 ps = build.per_sample(c, op, per)
                 key = f"{label} {loop}"
@@ -193,13 +345,37 @@ def main() -> None:
                     "lds": c["lds"], "stg": c["stg"], "ldgsts": c["ldgsts"],
                     "instructions": c["instructions"]}
                 print(f"SASS {key}: {result['sass'][key]}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, rows in eqf.items():
+        d = dirs[label]
+        for inst, lane, loud, sig, defs in rows:
+            row = _eqf_sass(d, lane, loud, sig, defs)
+            built = regs.get(build.lib_key("eq_f32", d, defs), {})
+            row["registers"] = next((n for f, n in built.items()
+                                     if row["kernel"] in f), None)
+            if sig is not None:        # the CUDA runtime's answers
+                occ = _eqf_module(d).occupancy(
+                    _eqf_module(d).libraries([sig], d)[sig])
+                g = dict((n, c) for n, c, _ in EQF_CALLS)[inst.split()[0]]
+                b = 17408 if lane else 16384
+                per_sm, threads = occ["blocks_per_sm"], occ["threads"]
+                row.update(occ, warps_per_sm=per_sm * threads // 32,
+                           waves=g * math.ceil(b / threads)
+                           / (per_sm * sms), waves_at=[g, b])
+            key = f"{label} eq_f32 {inst}"
+            result["sass"][key] = row
+            print(f"SASS {key}: {row}", flush=True)
     dev = torch.device("cuda", 0)
     for name, shape, args, kw in _cases(dev):
-        mine = _runner(name, build.SRC_DIR, args, kw)
+        if name not in kernels:
+            continue
+        run = _eqf_runner if name == "eq_f32" else \
+            lambda d, a, k, _n=name: _runner(_n, d, a, k)
+        mine = run(build.SRC_DIR, args, kw)
         for label, d in dirs.items():
             if label == "repo":
                 continue
-            theirs = _runner(name, d, args, kw)
+            theirs = run(d, args, kw)
             times = [_ms(theirs), _ms(mine), _ms(mine), _ms(theirs)]
             equal = all(_same(u, v) for u, v in zip(mine(), theirs()))
             row = {"kernel": name, "shape": shape, "other": label,

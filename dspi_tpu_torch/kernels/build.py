@@ -1,12 +1,16 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds).  Libraries land
-in ``dspi_tpu_torch/_build/`` (git-ignored), named by a hash of the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded.  ``build_all`` starts one nvcc per missing source, all at once.
-``sass``, ``loop_counts`` and ``per_sample`` read a built kernel's machine
-code, so that measurements can count the instructions of its sample loop;
+interface (no PyTorch headers, so a build takes seconds).  A source may
+also be built several times with different ``-D`` defines, one library
+each (the float cascade kernel, ``eq_f32.cu``, builds one a band-kinds
+signature: ``eq_f32_cuda.py``).  Libraries land in
+``dspi_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
+the flags and the defines, so an edited source is rebuilt and a stale
+library is never loaded.  ``build_all`` starts one nvcc per missing
+library, all at once.  ``sass``, ``loop_counts``, ``per_sample`` and
+``opcodes_per_sample`` read a built kernel's machine code, so that
+measurements can count the instructions of its sample loop;
 ``registers`` reads each kernel's registers from the build's ptxas report.
 
 Nothing here runs at import time: the CPU-only hosts that run the tests
@@ -22,15 +26,17 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("pdm", "eq_q28", "xf_q28", "eq_f32", "xf_f32")
+# the sources built as they are; eq_f32.cu needs a signature's defines
+SOURCES = ("pdm", "eq_q28", "xf_q28", "xf_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: dict[tuple[str, Path], ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, Path, tuple], ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -44,60 +50,77 @@ def nvcc() -> str:
     return str(path)
 
 
-def lib_path(name: str, src_dir: Path = SRC_DIR) -> Path:
-    """Where ``<src_dir>/<name>.cu``'s library goes: named by a hash of the
-    source and the flags, so sources of the same name from two directories
-    (another revision's, for a comparison) do not collide."""
+def lib_path(name: str, src_dir: Path = SRC_DIR, defines=()) -> Path:
+    """Where ``<src_dir>/<name>.cu``'s library built with ``defines`` goes:
+    named by a hash of the source, the flags and the defines, so sources of
+    the same name from two directories (another revision's, for a
+    comparison) do not collide, nor do two builds of one source."""
     src = (Path(src_dir) / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join((*NVCC_FLAGS, *defines)).encode()
+    digest = hashlib.sha256(src + flags).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_all(names=SOURCES, src_dirs=(SRC_DIR,)) -> dict:
+def lib_key(name: str, src_dir: Path = SRC_DIR, defines=()) -> str:
+    """A library's key in ``build_all``'s report: the source's name, or
+    "<dir>/<name>" outside csrc/, then its defines."""
+    key = name if Path(src_dir) == SRC_DIR else f"{src_dir}/{name}"
+    return " ".join((key, *defines))
+
+
+def build_all(names=SOURCES, src_dirs=(SRC_DIR,), variants=()) -> dict:
     """Compile every missing library of ``names`` in each of ``src_dirs``,
-    one nvcc process per source, all run in parallel.  Returns {name (or
-    "<dir>/<name>" outside csrc/): {"seconds": wall, "log": ptxas
-    report}}; raises with nvcc's output if any build fails."""
+    and of ``variants`` ((name, src_dir, defines) each), one nvcc process
+    per library, all run in parallel.  Returns {lib_key: {"seconds": the
+    process's wall time, "log": ptxas report}}; raises with nvcc's output
+    if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
     outs = set()
-    for src_dir in map(Path, src_dirs):
-        for name in names:
-            out = lib_path(name, src_dir)
-            if out.exists() or out in outs:     # built, or the same source
-                continue
-            outs.add(out)
-            key = name if src_dir == SRC_DIR else f"{src_dir}/{name}"
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(src_dir / f"{name}.cu")]
-            procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True), tmp, out)
+    jobs = [(name, Path(d), ()) for d in src_dirs for name in names]
+    jobs += [(name, Path(d), tuple(defs)) for name, d, defs in variants]
+    for name, src_dir, defines in jobs:
+        out = lib_path(name, src_dir, defines)
+        if out.exists() or out in outs:         # built, or the same source
+            continue
+        outs.add(out)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(src_dir / f"{name}.cu")]
+        procs[lib_key(name, src_dir, defines)] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True), tmp, out)
+
+    def wait(key):
+        # each process's own wall time: all were started at t0
+        log, _ = procs[key][0].communicate()
+        return key, log, time.perf_counter() - t0
+
     report = {}
     failed = []
-    for key, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{key}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)
-        report[key] = {"seconds": time.perf_counter() - t0, "log": log}
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        for key, log, seconds in pool.map(wait, list(procs)):
+            proc, tmp, out = procs[key]
+            if proc.returncode != 0:
+                failed.append(f"{key}:\n{log}")
+                continue
+            os.replace(tmp, out)
+            report[key] = {"seconds": seconds, "log": log}
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     return report
 
 
-def load(name: str, src_dir: Path = SRC_DIR) -> ctypes.CDLL:
-    """The loaded library for ``<src_dir>/<name>.cu``, built at first
-    use."""
-    key = (name, Path(src_dir))
+def load(name: str, src_dir: Path = SRC_DIR, defines=()) -> ctypes.CDLL:
+    """The loaded library for ``<src_dir>/<name>.cu`` built with
+    ``defines``, built at first use."""
+    key = (name, Path(src_dir), tuple(defines))
     lib = _LIBS.get(key)
     if lib is None:
-        path = lib_path(name, src_dir)
+        path = lib_path(name, src_dir, defines)
         if not path.exists():
-            build_all((name,), (src_dir,))
+            build_all((), (), [(name, src_dir, defines)])
         lib = ctypes.CDLL(str(path))
         _LIBS[key] = lib
     return lib
@@ -138,13 +161,13 @@ _SASS_WORDS = re.compile(r"/\*([0-9a-f]{4,})\*/[^;]*;\s*/\*\s*0x([0-9a-f]{16})"
                          r"\s*\*/\s*/\*\s*0x([0-9a-f]{16})\s*\*/")
 
 
-def sass(name: str, src_dir: Path = SRC_DIR) -> str:
-    """The SASS of ``<src_dir>/<name>.cu``'s library (cuobjdump beside
-    nvcc)."""
-    load(name, src_dir)
+def sass(name: str, src_dir: Path = SRC_DIR, defines=()) -> str:
+    """The SASS of ``<src_dir>/<name>.cu``'s library built with
+    ``defines`` (cuobjdump beside nvcc)."""
+    load(name, src_dir, defines)
     cuobjdump = Path(nvcc()).with_name("cuobjdump")
     return subprocess.run([str(cuobjdump), "-sass",
-                           str(lib_path(name, src_dir))],
+                           str(lib_path(name, src_dir, defines))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
 
@@ -193,6 +216,17 @@ def loop_counts(sass_text: str, kernel: str) -> dict:
             "instructions": sum(hist.values()),
             "stall": sum(stalls) if stalls else None, "head": head,
             "end": end}
+
+
+def opcodes_per_sample(counts: dict, samples: float) -> dict:
+    """A loop's instructions by base opcode (FMUL, FADD, BRA, ISETP, LDS,
+    ...; ``counts`` from ``loop_counts``), each over the ``samples`` one
+    iteration walks."""
+    by: dict[str, float] = {}
+    for op, n in counts["hist"].items():
+        base = op.split(".")[0]
+        by[base] = by.get(base, 0) + n / samples
+    return by
 
 
 def per_sample(counts: dict, op: str, per: int) -> dict:

@@ -37,8 +37,10 @@ the SASS of the built libraries (cuobjdump), by opcode and by pipe (the
 integer multiply-adds, IMAD*, issue to the FMA pipe; the other per-thread
 arithmetic to the integer ALU), in all and a sample (the loop's samples
 an iteration from its global loads, or from its stores where it reads
-shared memory), which checks the operation counts that chip_smoke.py's
-bounds assume; the SASS goes to chiprun_out/<lib>_sass.txt.
+shared memory, or, for each float cascade instance the path loaded, from
+its cp.async copies, one a step of its skewed loop), which checks the
+operation counts that chip_smoke.py's bounds assume; the SASS goes to
+chiprun_out/<lib>_sass.txt.
 """
 
 from __future__ import annotations
@@ -64,7 +66,9 @@ SERVE_DEPTH, SERVE_PACKETS = 8, 32
 # kernel's instantiations <NB, LOUD, ENV> that the paths launch (the
 # schedule mode runs the uniform instances, the per-lane mode
 # lane_kernel); the crossfeed reads its inputs from shared memory and
-# stores two words a sample
+# stores two words a sample.  The float cascade kernel is one library a
+# band-kinds signature: loop_ops counts each one the path loaded, a sample
+# being a step of its skewed loop (one cp.async each)
 _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
           ("eq_q28", "cascade_kernelILi10ELb1ELb1EE",
            "eq master <10,1,1>", "ldg", 1),
@@ -75,10 +79,6 @@ _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
           ("eq_q28", "lane_kernelILi10ELb0ELb0EE",
            "eq output lane_cf <10,0,0>", "ldg", 1),
           ("xf_q28", "xf_kernel", "xf", "stg", 2),
-          ("eq_f32", "cascade_kernelILi10ELb1ELb1ELb0EE",
-           "eq_f32 master <10,1,1,0> (every kind's code)", "ldg", 1),
-          ("eq_f32", "cascade_kernelILi10ELb0ELb0ELb0EE",
-           "eq_f32 output <10,0,0,0> (every kind's code)", "ldg", 1),
           ("xf_f32", "xf_kernel", "xf_f32", "stg", 2))
 
 
@@ -145,10 +145,20 @@ def loop_ops(out: Path) -> None:
     """Print the opcode counts of each kernel's sample loop (the longest
     innermost backward branch's body) in the SASS of the built libraries,
     and the same a sample."""
-    from dspi_tpu_torch.kernels import build
+    from dspi_tpu_torch.kernels import build, eq_f32_cuda
 
     sass = {}
-    for lib, pattern, label, op, per in _LOOPS:
+    loops = list(_LOOPS)
+    for sig in eq_f32_cuda.loaded():
+        kinds, loud, env, lane = eq_f32_cuda.unpack_signature(sig)
+        lib = f"eq_f32_{sig:x}"
+        sass[lib] = build.sass("eq_f32", build.SRC_DIR,
+                               eq_f32_cuda.defines(sig))
+        (out / f"{lib}_sass.txt").write_text(sass[lib])
+        loops.append((lib, "cascade_kernel",
+                      f"eq_f32 {sig:#x} (kinds {kinds}, loudness {loud}, "
+                      f"envelope {env}, per lane {lane})", "ldgsts", 1))
+    for lib, pattern, label, op, per in loops:
         if lib not in sass:
             sass[lib] = build.sass(lib)
             (out / f"{lib}_sass.txt").write_text(sass[lib])

@@ -2,7 +2,8 @@
 is found by its backward branch, and its instructions are sorted into the
 classes ``chip_smoke.py``'s bounds read (IMAD forms, integer ALU, the ALU
 instructions that no IMAD form can stand in for, global loads and
-stores)."""
+stores).  And ``build_all`` with nvcc replaced: one library a source, or
+a band-kinds signature of the float cascade source, each built once."""
 
 from dspi_tpu_torch.kernels import build
 
@@ -123,15 +124,11 @@ def test_loop_counts_does_not_count_copies_as_arithmetic():
     assert (c["imad"], c["alu"], c["ldgsts"]) == (0, 0, 1)
 
 
-def test_build_all_compiles_a_source_shared_by_two_directories_once(
-        tmp_path, monkeypatch):
-    """Two source directories holding the same file (a revision that did
-    not change it) map to one library, built by one nvcc process."""
+def _fake_nvcc(tmp_path, monkeypatch) -> list:
+    """nvcc replaced by a process that writes an empty library: the list
+    of the commands it was started with."""
     import subprocess
 
-    for d in ("a", "b"):
-        (tmp_path / d).mkdir()
-        (tmp_path / d / "k.cu").write_text("// same\n")
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
     calls = []
@@ -148,6 +145,17 @@ def test_build_all_compiles_a_source_shared_by_two_directories_once(
             return "ptxas info", None
 
     monkeypatch.setattr(subprocess, "Popen", Proc)
+    return calls
+
+
+def test_build_all_compiles_a_source_shared_by_two_directories_once(
+        tmp_path, monkeypatch):
+    """Two source directories holding the same file (a revision that did
+    not change it) map to one library, built by one nvcc process."""
+    for d in ("a", "b"):
+        (tmp_path / d).mkdir()
+        (tmp_path / d / "k.cu").write_text("// same\n")
+    calls = _fake_nvcc(tmp_path, monkeypatch)
     report = build.build_all(("k",), (tmp_path / "a", tmp_path / "b"))
     assert len(calls) == 1 and len(report) == 1
     assert build.lib_path("k", tmp_path / "a") == \
@@ -190,3 +198,45 @@ def test_loop_counts_sums_the_scheduled_stalls():
     c = build.loop_counts(coded, "xf_kernel")
     assert c["stall"] == 5 + 1 + 5
     assert build.loop_counts(SHARED, "xf_kernel")["stall"] is None
+
+
+def test_two_signatures_build_two_libraries(tmp_path, monkeypatch):
+    """The float cascade source built for two band-kinds signatures: two
+    library paths, two nvcc processes started together, each given its
+    signature's define; a signature asked for twice is built once."""
+    from dspi_tpu_torch.kernels import eq_f32_cuda
+
+    calls = _fake_nvcc(tmp_path, monkeypatch)
+    a, b = (eq_f32_cuda.signature(k, True, True, False)
+            for k in ((3, 4, 4, 5, 4, 4, 4, 1, 1, 1), (4,) * 10))
+    da, db = eq_f32_cuda.defines(a), eq_f32_cuda.defines(b)
+    assert build.lib_path("eq_f32", build.SRC_DIR, da) != \
+        build.lib_path("eq_f32", build.SRC_DIR, db)
+    report = build.build_all((), (), [("eq_f32", build.SRC_DIR, d)
+                                      for d in (da, db, da)])
+    assert len(calls) == 2 and len(report) == 2
+    assert [c[c.index("-o") - 1] for c in calls] == [da[0], db[0]]
+    assert set(report) == {build.lib_key("eq_f32", build.SRC_DIR, d)
+                           for d in (da, db)}
+    assert build.build_all((), (), [("eq_f32", build.SRC_DIR, da)]) == {}
+    assert len(calls) == 2
+
+
+def test_one_signature_asked_twice_builds_once(tmp_path, monkeypatch):
+    """``eq_f32_cuda.libraries`` asked for one signature twice, in one
+    call and then again: one nvcc process, and the second call loads the
+    library it already has."""
+    from dspi_tpu_torch.kernels import eq_f32_cuda
+
+    calls = _fake_nvcc(tmp_path, monkeypatch)
+    loads = []
+    monkeypatch.setattr(build, "load",
+                        lambda name, src_dir, defines: loads.append(
+                            defines) or object())
+    monkeypatch.setattr(eq_f32_cuda, "_LOADED", {})
+    sig = eq_f32_cuda.signature((1, 2, 3), False, True, True)
+    first = eq_f32_cuda.libraries([sig, sig])
+    again = eq_f32_cuda.libraries([sig])
+    assert len(calls) == 1 and len(loads) == 1
+    assert first[sig] is again[sig]
+    assert eq_f32_cuda.loaded() == (sig,)

@@ -272,9 +272,12 @@ def test_eq_f32_kernel_equals_plain(has_loud, has_env, nb, G, B, mixed,
     n0 = dict(LAUNCHES)
     got = f32_cascades(*[a.cuda() for a in args], **kw)
     torch.cuda.synchronize()
-    assert LAUNCHES["eq_f32"] == n0.get("eq_f32", 0) + 1
-    assert LAUNCHES["eq_f32_lane"] == n0.get("eq_f32_lane", 0) + lane
-    assert LAUNCHES["eq_f32_sched"] == n0.get("eq_f32_sched", 0) + bool(sched)
+    # one launch a distinct band-kinds signature of the cascades
+    n = len(set(kinds))
+    assert LAUNCHES["eq_f32"] == n0.get("eq_f32", 0) + n
+    assert LAUNCHES["eq_f32_lane"] == n0.get("eq_f32_lane", 0) + n * lane
+    assert LAUNCHES["eq_f32_sched"] == (n0.get("eq_f32_sched", 0)
+                                        + n * bool(sched))
     for name, g, w in zip(("y", "env", "state"), got, want):
         if w is None:
             assert g is None
@@ -282,6 +285,61 @@ def test_eq_f32_kernel_equals_plain(has_loud, has_env, nb, G, B, mixed,
         assert torch.isfinite(w).all(), name
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
                                       err_msg=name)
+
+
+@pytest.mark.cuda
+def test_eq_f32_launches_once_a_signature():
+    """A call whose cascades carry three band-kinds signatures (two
+    cascades share one) launches three times, each launch on its own
+    cascades in place: the result equals the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    rng = np.random.default_rng(95)
+    args, _ = f32_args(rng, 4, 96, 130, 4, True, True, False)
+    kinds = ((1, 4, 0, 5), (3, 3, 2, 1), (1, 4, 0, 5), (0, 0, 0, 0))
+    kw = dict(kinds=kinds, has_loud=True, has_env=True, tc=48)
+    want = f32_cascades_plain(*args, **kw)
+    n0 = LAUNCHES["eq_f32"]
+    got = f32_cascades(*[a.cuda() for a in args], **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["eq_f32"] == n0 + 3
+    for name, g, w in zip(("y", "env", "state"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+def test_eq_f32_entry_refuses_another_signature():
+    """The C entry of a signature's library refuses any other packed
+    signature with cudaErrorInvalidValue (1) and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    from dspi_tpu_torch.kernels import eq_f32_cuda
+
+    rng = np.random.default_rng(96)
+    (x, cf, s0, scal), kinds = f32_args(rng, 2, 8, 64, 3, False, False,
+                                        False, mixed=False)
+    sig = eq_f32_cuda.signature(kinds[0], False, False, False)
+    fn = eq_f32_cuda.bind(eq_f32_cuda.libraries([sig])[sig])
+    x, cf, s0, scal = (v.cuda() for v in (x, cf, s0, scal))
+    y = torch.full_like(x, 7.0)
+    s_out = torch.empty_like(s0)
+    stream = torch.cuda.current_stream().cuda_stream
+    for code in (sig, eq_f32_cuda.signature((1, 1, 1), False, False, False),
+                 sig | 1 << 6):
+        rc = fn(code, x.data_ptr(), cf.data_ptr(), s0.data_ptr(),
+                scal.data_ptr(), None, None, y.data_ptr(), None,
+                s_out.data_ptr(), 2, 8, 64, 0, stream)
+        torch.cuda.synchronize()
+        if code == sig:
+            assert rc == 0
+            want = f32_cascades_plain(*(v.cpu() for v in (x, cf, s0, scal)),
+                                      kinds=kinds)
+            np.testing.assert_array_equal(y.cpu().numpy(), want[0].numpy())
+            y.fill_(7.0)
+        else:
+            assert rc == 1                  # cudaErrorInvalidValue
+            assert bool((y == 7.0).all())   # nothing ran
 
 
 @pytest.mark.cuda

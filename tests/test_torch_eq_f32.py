@@ -11,7 +11,10 @@ them); loudness bypass flags in every pair, per cascade and lane by lane;
 the envelope at packet ends for uniform packets, the 44/45 cadence and a
 schedule with a 1-sample packet, its 1e-30 flush firing; per-cascade and
 per-lane coefficients.  The kernels themselves are held to these plain
-versions on the card (``tests/test_torch_cuda.py``).
+versions on the card (``tests/test_torch_cuda.py``).  Last, the float
+cascade wrapper's band-kinds signatures: packed and unpacked, and a call
+split into one launch a signature, which run group by group through the
+plain version and scattered back equals one plain call.
 """
 
 import numpy as np
@@ -213,3 +216,80 @@ def test_crossfeed_equals_jax_xf_body(lane):
         np.testing.assert_array_equal(g.numpy(), w)
     with pytest.raises(ValueError, match="xf_f32 wants"):
         xf_f32_plain(*(torch.from_numpy(v) for v in (l, r, coef[:2], s4)))
+
+
+# (G, nb, has_loud, has_env, lane, sched, kinds): calls whose cascades
+# carry several band-kinds signatures, as the wrapper splits them into one
+# launch a signature
+SPLITS = {
+    "mixed": (4, 5, True, True, False, None,
+              ((1, 4, 4, 5, 2), (3, 3, 1, 1, 1), (1, 4, 4, 5, 2),
+               (5, 2, 3, 4, 1))),
+    "skip_padding": (3, 4, False, True, False, None,
+                     ((1, 1, 0, 0), (4, 5, 3, 1), (1, 1, 0, 0))),
+    "nb0": (2, 0, True, True, False, None, ((), ())),
+    "lane_sched": (3, 6, True, True, True, (9, 1, 8),
+                   ((3, 4, 4, 5, 1, 0), (2, 2, 2, 2, 2, 2),
+                    (3, 4, 4, 5, 1, 0))),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLITS))
+def test_split_groups_scattered_back_equal_one_call(name):
+    """The wrapper's split of a call into one launch a signature: each
+    group run through the plain version on its own cascades and scattered
+    back into place equals one plain call over all of them, bit for bit,
+    and every cascade of a group has the group's signature."""
+    from dspi_tpu_torch.kernels import eq_f32_cuda
+
+    G, nb, has_loud, has_env, lane, sched, kinds = SPLITS[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    T = sum(sched) if sched else 2 * TC
+    args, _ = f32_args(rng, G, T, 8, nb, has_loud, has_env, lane)
+    kw = dict(has_loud=has_loud, has_env=has_env, tc=TC, sched=sched)
+    want = eq_f32.f32_cascades_plain(*args, kinds=kinds, **kw)
+    plan = eq_f32_cuda.split(kinds, has_loud, has_env, lane)
+    assert len(plan) == len(set(kinds))
+    assert sorted(g for _, idx in plan for g in idx) == list(range(G))
+    got = [torch.full_like(v, float("nan")) if v is not None else None
+           for v in want]
+    for sig, idx in plan:
+        for g in idx:
+            assert eq_f32_cuda.unpack_signature(sig) == (
+                kinds[g], has_loud, has_env, lane)
+        sel = torch.tensor(idx)
+        part = eq_f32.f32_cascades_plain(
+            *(v[sel] for v in args), kinds=[kinds[g] for g in idx], **kw)
+        for out, p in zip(got, part):
+            if out is not None:
+                out[sel] = p
+    for label, g, w in zip(("y", "env", "state"), got, want):
+        if w is None:
+            assert g is None
+        else:
+            np.testing.assert_array_equal(g.numpy(), w.numpy(),
+                                          err_msg=label)
+
+
+@pytest.mark.parametrize("nb", range(13))
+def test_signature_round_trips(nb):
+    """Every kind at every band of an ``nb``-band cascade, under every
+    flag, packs into a code that unpacks to the same; different kinds or
+    flags give different codes."""
+    from dspi_tpu_torch.kernels import eq_f32_cuda
+
+    seen = set()
+    for shift in range(6):
+        kinds = tuple((shift + j) % 6 for j in range(nb))
+        for flags in np.ndindex(2, 2, 2):
+            flags = tuple(bool(f) for f in flags)
+            sig = eq_f32_cuda.signature(kinds, *flags)
+            assert 0 <= sig < 2**64
+            assert eq_f32_cuda.unpack_signature(sig) == (kinds, *flags)
+            seen.add(sig)
+    assert len(seen) == (6 if nb else 1) * 8
+    with pytest.raises(ValueError, match="no signature"):
+        eq_f32_cuda.signature((6,) * max(nb, 1), False, False, False)
+    if nb == 12:
+        with pytest.raises(ValueError, match="no signature"):
+            eq_f32_cuda.signature((1,) * 13, False, False, False)
