@@ -136,10 +136,32 @@ Phases (each prints one line; any failure exits non-zero):
      64 lanes of each, all lanes of one segment length in one plain call
      (its time goes by samples, not lanes): every word and state word
      equal
- 17. one JSON line {"kernels": [...]} for every kernel of the port and each
-     mode of the Q28 cascade kernel, with every path's segment time, RTF
-     and peak memory, and the serving cells
- 18. last line: {"ok": true, "device": {...}}
+ 17. the benchmark twin's headline (dspi_tpu_torch.bench.bench_engine) at
+     full width: the headline float chain, 16384 streams x 128 packets, 8
+     chained segments a run (x ^ i each), best of 2 runs from the
+     restored state with every run's fold equal, and one synchronous
+     segment's latency, beside phase 6's float path of this run; then
+     bench_stages' full96 at full width (16384 streams x 64 packets x 96
+     samples) with its peak memory; then every other bench_stages stage
+     once at 1024 streams x 8 packets.  Each with its launches, set to 0
+     just before and read just after
+ 18. graft_entry: dryrun_multichip(1), its seven sections over a mesh of
+     this card, ticked; entry()'s step card vs CPU
+ 19. the firmware oracles (dspi_tpu_torch.native, built with g++) against
+     the card's engines on 8 streams x 24 packets, half of them quiet: the
+     float chain on its block matmuls within 1e-6 relative RMS of
+     FirmwareFloat on the loud streams and of the golden model on all
+     (the quiet streams no farther from FirmwareFloat than the golden
+     model, which sits ~3.5e-6 from it there); the Q28 chain word for word
+     with FirmwareQ28 with the leveller off, within tests/test_fw_oracle.py's
+     48 kHz LSB bounds on its q5 config with the leveller on, and word for
+     word with the golden model on the headline chain with the leveller on
+     (its distance to FirmwareQ28 read)
+ 20. one JSON line {"bench": {...}} with phases 17-19's readings, then one
+     {"kernels": [...]} for every kernel of the port and each mode of the
+     Q28 cascade kernel, with every path's segment time, RTF and peak
+     memory, and the serving cells
+ 21. last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports nothing of JAX or of the JAX package.
@@ -2013,6 +2035,344 @@ def phase_pdm_plain() -> dict:
             "plain_cpu_s_at_path_shape": plain_s}
 
 
+# ----------------------------------------------------------------------------
+# the benchmark and graft entry points, the firmware oracles
+# ----------------------------------------------------------------------------
+
+BENCH_DEPTH, BENCH_ITERS = 8, 2
+# bench_stages' other stages, once each at a small width on the card
+STAGE_SMALL = dict(B=1024, NPKT=8, ITERS=2, DEPTH=2)
+
+
+def _launches() -> dict:
+    from dspi_tpu_torch.kernels import LAUNCHES
+
+    return {k: n for k, n in LAUNCHES.items() if n}
+
+
+def _zero_launches() -> None:
+    from dspi_tpu_torch.kernels import LAUNCHES
+
+    for k in list(LAUNCHES):
+        LAUNCHES[k] = 0
+
+
+def phase_bench(dev, card: str, main_path: dict) -> dict:
+    """The benchmark twin's headline (``dspi_tpu_torch.bench``'s
+    ``bench_engine``, as ``python -m dspi_tpu_torch.bench`` runs it) at
+    full width: the headline float chain, 16384 streams x 128 packets,
+    BENCH_DEPTH chained segments a run (x ^ i each), best of BENCH_ITERS
+    runs from the restored state, each run's fold equal to the first's;
+    launch counts set to 0 just before and read just after (one PDM
+    launch a segment: the warm-up run, the timed runs and the two latency
+    segments).  Printed beside this run's float main path (phase 6)."""
+    from dspi_tpu_torch import Platform, bench
+    from dspi_tpu_torch.configs import full_chain_config
+
+    cfg = full_chain_config(Platform.RP2350, RATE)
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        rtf, latency = bench.bench_engine(cfg, STREAMS, PACKETS, BENCH_ITERS,
+                                          depth=BENCH_DEPTH, device=dev)
+    except RuntimeError as e:
+        fail(f"bench headline: {e}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    segments = BENCH_DEPTH * (1 + max(BENCH_ITERS, 2)) + 2
+    if launches != {"pdm": segments}:
+        fail(f"bench headline launched {launches}, not {segments} PDM")
+    audio_s = STREAMS * PACKETS * BLOCK / RATE
+    seg_ms = 1e3 * audio_s / rtf
+    gap = seg_ms / main_path["mean_ms"] - 1.0
+    print(f"bench headline (dspi_tpu_torch.bench): RTF {rtf:.1f}x at "
+          f"{STREAMS} x {PACKETS}x{BLOCK}, best of {max(BENCH_ITERS, 2)} "
+          f"chained runs of {BENCH_DEPTH} segments ({seg_ms:.3f} ms a "
+          f"segment, host clock), one synchronous segment "
+          f"{1e3 * latency:.3f} ms; this run's float main path (phase 6, "
+          f"mean of {SEGMENTS}, CUDA events) {main_path['mean_ms']:.3f} ms, "
+          f"RTF {main_path['rtf']:.1f}x: the benchmark's segment "
+          f"{100 * gap:+.1f}% from it; {wall:.1f} s in all; launches "
+          f"{launches}; card {card}", flush=True)
+    return {"rtf": rtf, "latency_s": latency, "segment_ms": seg_ms,
+            "main_path_mean_ms": main_path["mean_ms"],
+            "main_path_rtf": main_path["rtf"], "gap": gap,
+            "launches": launches, "depth": BENCH_DEPTH,
+            "iters": max(BENCH_ITERS, 2)}
+
+
+def phase_full96(dev, card: str) -> dict:
+    """bench_stages' full96 stage at full width: the headline chain at 96
+    kHz, 16384 streams x 64 packets x 96 samples (the 48 kHz segment's
+    samples), 4 chained segments a run, with the card's peak memory (the
+    port applies the 96 kHz blocks without the JAX package's x-chunking);
+    one PDM launch a segment."""
+    from dspi_tpu_torch import bench_stages
+
+    S = bench_stages.Settings(B=STREAMS, NPKT=PACKETS // 2, ITERS=2, DEPTH=4,
+                              device=dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    r = bench_stages.run_stage("full96", S)["full_96k"]
+    launches = _launches()
+    segments = S.DEPTH * (1 + max(S.ITERS, 2)) + 2
+    if launches != {"pdm": segments}:
+        fail(f"full96 launched {launches}, not {segments} PDM")
+    print(f"full96 (bench_stages): {S.B} streams x {S.NPKT}x96 samples, RTF "
+          f"{r['rtf']:.1f}x, one synchronous segment "
+          f"{1e3 * r['wall']:.3f} ms, peak memory {r['peak_gb']:.2f} GB; "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}; card "
+          f"{card}", flush=True)
+    return {**r, "launches": launches}
+
+
+def phase_stages(dev, card: str) -> dict:
+    """Every other bench_stages stage once on the card at a small width
+    (STAGE_SMALL; the 44.1 kHz stages on their 130-packet cadence,
+    pdm_sweep at its four widths), each printing its readings and
+    launches."""
+    from dspi_tpu_torch import bench_stages
+
+    S = bench_stages.Settings(device=dev, **STAGE_SMALL)
+    out = {}
+    for stage in bench_stages.STAGES:
+        if stage == "full96":
+            continue
+        _zero_launches()
+        t0 = time.perf_counter()
+        try:
+            got = bench_stages.run_stage(stage, S)
+        except Exception as e:                  # noqa: BLE001
+            fail(f"bench_stages {stage}: {type(e).__name__}: {e}")
+        torch.cuda.synchronize()
+        launches = _launches()
+        if not launches.get("pdm") and stage not in ("nopdm", "passthrough",
+                                                     "peq"):
+            fail(f"bench_stages {stage} launched no PDM kernel: {launches}")
+        readings = {k: {m: (round(v, 4) if isinstance(v, float) else v)
+                        for m, v in e.items()} for k, e in got.items()}
+        print(f"bench_stages {stage} ({S.B} streams, {S.NPKT} packets, "
+              f"depth {S.DEPTH}): {json.dumps(readings)}; "
+              f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+              flush=True)
+        out[stage] = {"entries": got, "launches": launches}
+    print(f"bench_stages: {len(out)} stages ran on {card}", flush=True)
+    return out
+
+
+def phase_graft(dev) -> dict:
+    """graft_entry on the card: dryrun_multichip(1), its seven sections
+    over a mesh of this card, ticked; then entry()'s step on the card
+    against the same step on the CPU (float state <= 1e-6 relative RMS,
+    peaks and PDM sums equal)."""
+    import contextlib
+    import io
+
+    from dspi_tpu_torch import graft_entry
+
+    _zero_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        graft_entry.dryrun_multichip(1)
+    torch.cuda.synchronize()
+    ticks = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("[dryrun]")]
+    for ln in ticks:
+        print(ln, flush=True)
+    if len(ticks) != 7:
+        fail(f"dryrun_multichip ticked {len(ticks)} sections, not 7")
+    launches = _launches()
+
+    runs = []
+    for d in (dev, "cpu"):
+        fn, args = graft_entry.entry(device=d)
+        runs.append(fn(*args))
+    (sg, og), (sc, oc) = runs
+    for k in ("peaks", "pdm_sum"):
+        if not torch.equal(og[k].cpu(), oc[k]):
+            fail(f"graft entry card vs CPU: {k} differ")
+    worst = 0.0
+    for f, g, c in zip(sc._fields, sg, sc):
+        if c is not None and c.is_floating_point():
+            worst = max(worst, rel_rms(g.cpu().numpy(), c.numpy()))
+    if worst > 1e-6:
+        fail(f"graft entry card vs CPU: float state {worst:.3e}")
+    print(f"graft_entry: dryrun_multichip(1) 7 sections "
+          f"({time.perf_counter() - t0:.1f} s with the entry step; launches "
+          f"{launches}); entry() card vs CPU: peaks and PDM sums equal, "
+          f"float state {worst:.3e}", flush=True)
+    return {"ticks": ticks, "launches": launches, "entry_state_rel": worst}
+
+
+ORACLE_STREAMS, ORACLE_PACKETS = 8, 24
+
+
+def oracle_input(rng) -> np.ndarray:
+    """int32 [ORACLE_PACKETS, 2, BLOCK, ORACLE_STREAMS] of s16 samples:
+    the first half of the streams loud (half scale), the rest quiet
+    (1/50 scale, which holds the leveller in its boost region)."""
+    scale = np.where(np.arange(ORACLE_STREAMS) < ORACLE_STREAMS // 2,
+                     0.5, 0.02) * 32767
+    u = rng.uniform(-1.0, 1.0,
+                    size=(ORACLE_PACKETS, 2, BLOCK, ORACLE_STREAMS))
+    return (u * scale).astype(np.int32)
+
+
+def phase_fw_oracle(dev) -> dict:
+    """The card's engines against the port's firmware oracles
+    (``dspi_tpu_torch.native``, native/dspi_host.cpp built with g++), each
+    stream of ORACLE_STREAMS run through the oracle alone over
+    ORACLE_PACKETS packets at 48 kHz:
+
+      * the float chain (headline config, block matmuls) against
+        FirmwareFloat(coeff_source="design"): the loud streams' outputs
+        within 1e-6 relative RMS of it; every stream's within 1e-6 of the
+        golden model (``dspi_tpu_torch.golden``); the quiet streams',
+        where the leveller boosts and the golden model itself sits
+        ~3.5e-6 from the firmware's libm gain, within 1e-6 farther from
+        the firmware than the golden model is;
+      * the Q28 chain (headline config) with the leveller off against
+        FirmwareQ28: every output and PDM word equal;
+      * the Q28 chain, leveller on, on the config tests/test_fw_oracle.py
+        measured its 48 kHz bounds on (``q5_config``): each stream's
+        outputs within 512 Q28 LSBs and its s24 words within 8 (the libm
+        gain can flip a quantized LSB), its PDM modulator input differing
+        on under 2% of samples and its words equal where that input never
+        differs;
+      * the Q28 headline chain, leveller on: every output and PDM word
+        the golden model's, and its distance to FirmwareQ28 read: the
+        golden model itself sits outside the q5 bounds there, a property
+        of the reference's deterministic gain math against libm, not of
+        the port (PERF.md)."""
+    from dspi_tpu_torch import Platform, native
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.golden.model import GoldenDevice
+
+    rng = np.random.default_rng(0xD5B1F)
+    x = oracle_input(rng)
+    t0 = time.perf_counter()
+    res = {}
+
+    def engine_out(cfg):
+        eng = Engine(cfg, n_streams=ORACLE_STREAMS, block_size=BLOCK,
+                     device=dev)
+        out = eng.process(torch.from_numpy(x).to(dev))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    cfg = full_chain_config(Platform.RP2350, RATE)
+    got = engine_out(cfg)["out"]
+    fw, gold, rels = [], [], []
+    for s in range(ORACLE_STREAMS):
+        want, _ = native.FirmwareFloat(cfg, coeff_source="design").process(
+            x[..., s])
+        if np.abs(want).max() <= 0:
+            fail(f"firmware oracle: float stream {s} is silent")
+        g = GoldenDevice(cfg)
+        ref = np.stack([g.process_packet(np.ascontiguousarray(
+            x[p, :, :, s].T))["buf_out"] for p in range(ORACLE_PACKETS)])
+        fw.append(rel_rms(got[..., s], want))
+        gold.append(rel_rms(got[..., s], ref))
+        rels.append(rel_rms(ref, want))
+    loud = ORACLE_STREAMS // 2
+    if max(fw[:loud]) > 1e-6 or max(gold) > 1e-6 or any(
+            f > r + 1e-6 for f, r in zip(fw[loud:], rels[loud:])):
+        fail(f"float engine vs FirmwareFloat {fw}, vs the golden model "
+             f"{gold}; the golden model vs FirmwareFloat {rels}")
+    res["float"] = {"engine_vs_fw": fw, "engine_vs_golden": gold,
+                    "golden_vs_fw": rels}
+
+    # (label, config, mode): "exact" every output and PDM word equal to
+    # FirmwareQ28; "bounds" within tests/test_fw_oracle.py's 48 kHz LSB
+    # bounds; "golden" every word equal to the golden model, the distance
+    # to FirmwareQ28 read (the golden model's own)
+    nolev = full_chain_config(Platform.RP2040, RATE)
+    nolev.leveller.enabled = False
+    cases = (("headline, leveller off", nolev, "exact"),
+             ("q5_full 48 kHz, leveller on", q5_config(), "bounds"),
+             ("headline, leveller on",
+              full_chain_config(Platform.RP2040, RATE), "golden"))
+    for label, cfg, mode in cases:
+        out = engine_out(cfg)
+        got = out["out"].astype(np.int64)
+        words = out["pdm"].view(np.uint32).reshape(-1, 8, ORACLE_STREAMS)
+        worst = {"q28_lsb": 0, "s24_lsb": 0, "pdm_in_flip": 0.0,
+                 "pdm_flip": 0.0}
+        for s in range(ORACLE_STREAMS):
+            want, want_words = native.FirmwareQ28(cfg).process(x[..., s])
+            g = got[..., s]
+            s24 = [np.clip((v.astype(np.int64) + 32) >> 6, -0x800000,
+                           0x7FFFFF) for v in (g, want)]
+            sub = g.shape[1] - 1
+            m = {"q28_lsb": int(np.abs(g - want).max()),
+                 "s24_lsb": int(np.abs(s24[0] - s24[1]).max()),
+                 "pdm_in_flip": float(((g[:, sub] >> 14) != (
+                     want[:, sub].astype(np.int64) >> 14)).mean()),
+                 "pdm_flip": float((words[..., s] != want_words).mean())}
+            bad = {"exact": m["q28_lsb"] or m["pdm_flip"],
+                   "bounds": (m["q28_lsb"] > 512 or m["s24_lsb"] > 8
+                              or m["pdm_in_flip"] >= 2e-2
+                              or (m["pdm_in_flip"] == 0 and m["pdm_flip"])),
+                   "golden": False}[mode]
+            if mode == "golden":
+                gd = GoldenDevice(cfg)
+                pk = [gd.process_packet(np.ascontiguousarray(
+                    x[p, :, :, s].T)) for p in range(ORACLE_PACKETS)]
+                ref = np.stack([np.asarray(q["buf_out"]) for q in pk])
+                ref_words = np.array([w for q in pk for w in q["pdm_words"]],
+                                     np.uint32).reshape(-1, 8)
+                bad = not (np.array_equal(g, ref)
+                           and np.array_equal(words[..., s], ref_words))
+            if bad:
+                fail(f"Q28 engine vs FirmwareQ28 ({label}) stream {s}: "
+                     f"{m}" + (" and not the golden model's words"
+                               if mode == "golden" else ""))
+            worst = {k: max(worst[k], v) for k, v in m.items()}
+        res[label] = worst
+    print(f"firmware oracles ({time.perf_counter() - t0:.1f} s; "
+          f"{ORACLE_STREAMS} streams x {ORACLE_PACKETS}x{BLOCK}, half of "
+          f"them quiet): float engine (block matmuls) vs FirmwareFloat "
+          f"relative RMS {max(fw[:loud]):.3e} at most on the loud streams "
+          f"(<= 1e-6), {max(fw[loud:]):.3e} on the quiet ones (the golden "
+          f"model's own {max(rels[loud:]):.3e}), vs the golden model "
+          f"{max(gold):.3e} (<= 1e-6); Q28 engine vs FirmwareQ28, headline "
+          f"leveller off: every output and PDM word equal; q5_full leveller "
+          f"on: worst {res['q5_full 48 kHz, leveller on']} (q28 <= 512, s24 "
+          f"<= 8 LSBs); headline leveller on: every word the golden "
+          f"model's, FirmwareQ28 worst {res['headline, leveller on']}",
+          flush=True)
+    return res
+
+
+def q5_config():
+    """The RP2040 config tests/test_fw_oracle.py's leveller-on LSB bounds
+    were measured on (``q5_full`` at 48 kHz): 8 peaking bands a channel,
+    every output live with delays, loudness, crossfeed, and the leveller
+    at amount 70, speed 2, lookahead, gate -70 dB."""
+    from dspi_tpu_torch import DeviceConfig, EqBand, FilterType, Platform
+    from dspi_tpu_torch.params.types import Crosspoint
+
+    cfg = DeviceConfig(platform=Platform.RP2040, sample_rate=RATE)
+    for ch in range(cfg.num_channels):
+        for b in range(8):
+            cfg.eq[ch][b] = EqBand(FilterType.PEAKING, 150.0 * (b + 1), 1.2,
+                                   1.5 if (ch + b) % 2 else -2.0)
+    for o in range(cfg.num_outputs):
+        cfg.outputs[o].enabled = True
+        cfg.outputs[o].delay_ms = 0.4 * o
+        cfg.crosspoints[0][o] = Crosspoint(True, False, -3.0)
+        cfg.crosspoints[1][o] = Crosspoint(True, False, -3.0)
+    cfg.sync_delays()
+    cfg.loudness.enabled = True
+    cfg.crossfeed.enabled = True
+    lv = cfg.leveller
+    lv.enabled, lv.amount, lv.speed = True, 70.0, 2
+    lv.lookahead, lv.gate_threshold_db = True, -70.0
+    return cfg
+
+
 def _path_rows(calls: list, kind: str) -> dict:
     """ms, bound and what bounds it of one kernel's calls in one segment
     of a path, summed."""
@@ -2052,6 +2412,11 @@ def main() -> None:
     serving = phase_serving(card)
     phase_runner_card_vs_cpu(dev)
     pdm_row.update(phase_pdm_plain())
+    bench_head = phase_bench(dev, card, main_path)
+    full96 = phase_full96(dev, card)
+    stages = phase_stages(dev, card)
+    graft = phase_graft(dev)
+    oracle = phase_fw_oracle(dev)
 
     # launches: each path's counted run (SEGMENTS segments each; the Q28
     # chain at 16-bit and at 24-bit)
@@ -2065,7 +2430,12 @@ def main() -> None:
              "rp2350_float_hetero": f_het["launches"],
              "rp2350_float_scan": f_scan["launches"],
              "rp2350_float_scan_hetero": f_scan_het["launches"],
-             **{label: cell["launches"] for label, cell in serving.items()}}
+             **{label: cell["launches"] for label, cell in serving.items()},
+             "bench_headline": bench_head["launches"],
+             "bench_stages_full96": full96["launches"],
+             **{f"bench_stages_{st}": r["launches"]
+                for st, r in stages.items()},
+             "graft_dryrun_multichip": graft["launches"]}
     # the cascade kernel's scalar-coefficient, uniform-packet mode: its
     # launches less the other modes' (no path combines lane_cf and a
     # schedule)
@@ -2151,6 +2521,11 @@ def main() -> None:
                   bound_by=xf_call["bound_by"], shape=xf_call["shape"],
                   hetero_call=next(c for c in hetero["calls"]
                                      if c["kind"] == "xf"))
+    print(json.dumps({"bench": {
+        "headline": bench_head, "full96": full96,
+        "stages": {st: r["entries"] for st, r in stages.items()},
+        "stage_settings": STAGE_SMALL, "graft": graft,
+        "firmware_oracles": oracle}}), flush=True)
     print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
                                   xf_row, eqf_row, xff_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,10 @@ delta-sigma PDM modulator, the Q28 EQ cascades and crossfeed, and the
 float EQ cascades and crossfeed as hand-written CUDA kernels.  Its serving surface is the
 JAX package's: the runners, the vendor control plane and the entry
 points ``python -m dspi_tpu_torch.serve`` and ``python -m
-dspi_tpu_torch.console``.
+dspi_tpu_torch.console``, and its benchmarks' and oracles' too: the
+benchmark twins ``python -m dspi_tpu_torch.bench`` and ``python -m
+dspi_tpu_torch.bench_stages``, the graft entry points, the firmware
+oracles and the golden model.
 
 Layout:
   core/     numerics substrate (constants, exact Q28/Q15 and float math)
@@ -25,9 +28,12 @@ Layout:
             the host wire encoder
   control/  the vendor-protocol device (VirtualDSPi) and its envelope
   io/       preset-slot, directory and bulk codecs, the preset store
-  native    ctypes binding of native/dspi_host.cpp's host data plane
+  golden/   the sample-sequential golden model of the firmware
+  native    ctypes binding of native/dspi_host.cpp: the host data plane,
+            the firmware oracles and the scalar oracles
   configs   the headline device configuration and its serving mix
   serve, console   the entry points
+  bench, bench_stages, graft_entry   the benchmark and graft twins
 """
 
 from .core.constants import FilterType, Platform

@@ -149,10 +149,10 @@ def test_engine_without_device_needs_a_card():
 
 def test_port_imports_no_jax():
     """Importing the port (every module: the chain, the kernels, the
-    control plane, io, the runners, the native binding and the entry
-    points) and building an engine on the CPU loads neither JAX nor any
-    module of the JAX package; no source file of the port names either in
-    an import."""
+    control plane, io, the runners, the native binding, the golden model,
+    the benchmark twins and the entry points) and building an engine on
+    the CPU loads neither JAX nor any module of the JAX package; no source
+    file of the port names either in an import."""
     code = (
         "import sys\n"
         "import dspi_tpu_torch, dspi_tpu_torch.chain\n"
@@ -165,6 +165,9 @@ def test_port_imports_no_jax():
         "import dspi_tpu_torch.runtime.telemetry\n"
         "import dspi_tpu_torch.runtime.wire_out, dspi_tpu_torch.native\n"
         "import dspi_tpu_torch.serve, dspi_tpu_torch.console\n"
+        "import dspi_tpu_torch.golden.model, dspi_tpu_torch.golden.qref\n"
+        "import dspi_tpu_torch.bench, dspi_tpu_torch.bench_stages\n"
+        "import dspi_tpu_torch.graft_entry\n"
         "dspi_tpu_torch.native.crc32(b'x')\n"
         "from dspi_tpu_torch.chain import Engine\n"
         "from dspi_tpu_torch.configs import full_chain_config\n"
