@@ -130,12 +130,27 @@ Phases (each prints one line; any failure exits non-zero):
      chain's clips equal, peaks within 1 LSB, float state within 1e-6
      relative RMS (the leveller's envelope and gain within 1e-5, their
      budget against the golden model)
+ 15b. tests/test_fuzz.py's random configs (a copy, random_config) at full
+     width, 16384 lanes x 24 packets of 48, one segment each, against the
+     port's golden model on the first and the last lane: the Q28 chain on
+     6 seeds and on 2 random aperiodic 9-packet schedules (3 segments)
+     word for word (out, s24, PDM words, peaks, clip flags); the float
+     scan lowering on 6 seeds bit for bit, building the float cascade
+     libraries of their band-kinds signatures at first use (each build's
+     time printed); the block lowering on the same seeds card vs CPU
+     (float_close) where the CPU port meets 1e-6 against the golden
+     model, else (fault F1) the card no farther from the golden model
+     than 1.5x the CPU port on the same lanes.  Each kernel call of a
+     first segment held at its full shape against the plain version on
+     the CPU over 128 lanes (the PDM calls in phase 16); launches set to
+     0 before each segment and read after it; the phase's time printed
  16. the PDM kernel's calls at full length (the two timed in phase 3, the
-     one of each path in phases 6, 8, 10, 12 and 13b and the first of
-     phase 14) against the plain version on the CPU over the first and the last
-     64 lanes of each, all lanes of one segment length in one plain call
-     (its time goes by samples, not lanes): every word and state word
-     equal
+     one of each path in phases 6, 8, 10, 12 and 13b, the first of
+     phase 14 and those of phase 15b) against the plain version on the
+     CPU over the first and the last 64 lanes of each, all lanes of one
+     segment length in one plain call (its time goes by samples, not
+     lanes), the segment lengths' calls in parallel worker processes:
+     every word and state word equal
  17. the benchmark twin's headline (dspi_tpu_torch.bench.bench_engine) at
      full width: the headline float chain, 16384 streams x 128 packets, 8
      chained segments a run (x ^ i each), best of 2 runs from the
@@ -157,7 +172,8 @@ Phases (each prints one line; any failure exits non-zero):
      48 kHz LSB bounds on its q5 config with the leveller on, and word for
      word with the golden model on the headline chain with the leveller on
      (its distance to FirmwareQ28 read)
- 20. one JSON line {"bench": {...}} with phases 17-19's readings, then one
+ 20. one JSON line {"bench": {...}, "fuzz": {...}} with phases 17-19's
+     and 15b's readings, then one
      {"kernels": [...]} for every kernel of the port and each mode of the
      Q28 cascade kernel, with every path's segment time, RTF and peak
      memory, and the serving cells
@@ -169,6 +185,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -1279,17 +1296,14 @@ _RECORDED = (("pipeline", "q28_cascades", "eq"), ("pipeline", "xf_q28", "xf"),
              ("pipeline", "xf_f32", "xff"), ("pdm_cuda", "pdm_words", "pdm"))
 
 
-def record_calls(eng, x, label: str,
-                 kinds: tuple = ("eq", "xf", "eq", "pdm")) -> list:
-    """Each cascade, crossfeed and PDM call of one more segment (fails
-    unless they are ``kinds``, in order), timed alone on its own arguments
-    beside its bound, then held at its full shape against the plain
-    version on the CPU over 128 of its streams (check_path_call)."""
+@contextlib.contextmanager
+def recording(calls: list):
+    """Append each cascade, crossfeed and PDM wrapper call made inside the
+    block to ``calls`` as (kind, wrapper, args, keywords)."""
     from dspi_tpu_torch.chain import pipeline
     from dspi_tpu_torch.kernels import pdm_cuda
 
     mods = {"pipeline": pipeline, "pdm_cuda": pdm_cuda}
-    calls = []
     saved = [(mods[m], name, getattr(mods[m], name))
              for m, name, _ in _RECORDED]
 
@@ -1302,10 +1316,20 @@ def record_calls(eng, x, label: str,
     for (mod, name, fn), (_, _, kind) in zip(saved, _RECORDED):
         setattr(mod, name, recorder(fn, kind))
     try:
-        eng.process(x ^ (SEGMENTS + 1))
+        yield calls
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def record_calls(eng, x, label: str,
+                 kinds: tuple = ("eq", "xf", "eq", "pdm")) -> list:
+    """Each cascade, crossfeed and PDM call of one more segment (fails
+    unless they are ``kinds``, in order), timed alone on its own arguments
+    beside its bound, then held at its full shape against the plain
+    version on the CPU over 128 of its streams (check_path_call)."""
+    with recording([]) as calls:
+        eng.process(x ^ (SEGMENTS + 1))
     if tuple(kind for kind, *_ in calls) != kinds:
         fail(f"{label} segment made calls {[c[0] for c in calls]}")
     rows = []
@@ -2007,19 +2031,307 @@ def phase_runner_card_vs_cpu(dev) -> None:
           flush=True)
 
 
+# ----------------------------------------------------------------------------
+# random configs (tests/test_fuzz.py's) at full width
+# ----------------------------------------------------------------------------
+
+FUZZ_PACKETS = 24         # past the lookahead's 10-13 silent packets
+FUZZ_Q28 = (1, 2, 3, 5, 101, 303)
+FUZZ_SCHED, FUZZ_SCHED_SEGMENTS = (606, 707), 3
+# the F1 classes (tests/fuzz_twin.py): 303 meets the block lowering's
+# budget on the CPU, 1 and 202 break it by the block path's own rounding,
+# 3, 36 and 505 by the firmware's own float32 recursion
+FUZZ_FLOAT = (303, 1, 202, 3, 36, 505)
+# where the CPU port breaks the 1e-6 budget, the card's distance to the
+# golden model over the CPU port's, at most
+FUZZ_BLOCK_RATIO = 1.5
+
+
+def random_config(rng, platform):
+    """tests/test_fuzz.py's random_config on the port's own types: the
+    same draws in the same order (tests/test_torch_fuzz_sched.py holds the
+    two field for field on every seed used here)."""
+    from dspi_tpu_torch import DeviceConfig, EqBand, FilterType
+    from dspi_tpu_torch.params.types import Crosspoint
+
+    types = [FilterType.FLAT, FilterType.PEAKING, FilterType.LOWSHELF,
+             FilterType.HIGHSHELF, FilterType.LOWPASS, FilterType.HIGHPASS]
+    cfg = DeviceConfig(platform=platform)
+    nout = cfg.num_outputs
+    cfg.preamp_db = [float(rng.uniform(-12, 6)) for _ in range(2)]
+    cfg.master_volume_db = float(rng.uniform(-40, 0))
+    cfg.host_volume_index = int(rng.integers(30, 61))
+    for ch in range(cfg.num_channels):
+        for b in range(10):
+            cfg.eq[ch][b] = EqBand(
+                types[int(rng.integers(len(types)))],
+                float(rng.uniform(10, 20000)),
+                float(rng.uniform(0.3, 10.0)),
+                float(rng.uniform(-10, 10)))
+    for o in range(nout):
+        cfg.outputs[o].enabled = bool(rng.random() < 0.8)
+        cfg.outputs[o].mute = bool(rng.random() < 0.1)
+        cfg.outputs[o].gain_db = float(rng.uniform(-12, 3))
+        cfg.outputs[o].delay_ms = float(rng.uniform(0, 8))
+        for i in range(2):
+            cfg.crosspoints[i][o] = Crosspoint(
+                bool(rng.random() < 0.8), bool(rng.random() < 0.2),
+                float(rng.uniform(-20, 6)))
+    cfg.sync_delays()
+    cfg.leveller.enabled = bool(rng.random() < 0.7)
+    cfg.leveller.amount = float(rng.uniform(10, 100))
+    cfg.leveller.speed = int(rng.integers(0, 3))
+    cfg.leveller.lookahead = bool(rng.random() < 0.7)
+    cfg.crossfeed.enabled = bool(rng.random() < 0.7)
+    cfg.crossfeed.preset = int(rng.integers(0, 4))
+    if cfg.crossfeed.preset == 3:
+        cfg.crossfeed.custom_fc = float(rng.uniform(500, 2000))
+        cfg.crossfeed.custom_feed_db = float(rng.uniform(0, 15))
+    cfg.loudness.enabled = bool(rng.random() < 0.7)
+    cfg.loudness.intensity_pct = float(rng.uniform(0, 100))
+    return cfg
+
+
+def fuzz_case(seed: int, platform, scheduled: bool = False):
+    """A seed's (config, schedule or None), drawn as tests/test_fuzz.py
+    draws them: the config, then a random aperiodic schedule's nine
+    packet sizes."""
+    rng = np.random.default_rng(seed)
+    cfg = random_config(rng, platform)
+    if not scheduled:
+        return cfg, None
+    return cfg, tuple(int(v) for v in rng.integers(24, 64, size=9))
+
+
+def golden_lanes(golds, x, sched) -> dict:
+    """Feed one segment of the first and the last lane of ``x`` ([Npkt,
+    2, T, B], or [2, sum(sched), B]) to ``golds``, one golden device
+    each: their out, s24 and PDM words (int32 bits) in the engine's
+    emit='full' layout, and each packet's peaks [Npkt, nch, 2]."""
+    xl = x.index_select(-1, torch.tensor([0, x.shape[-1] - 1],
+                                         device=x.device)).cpu().numpy()
+    per = []
+    for s, g in enumerate(golds):
+        if sched:
+            offs = np.cumsum((0,) + tuple(sched))
+            frames = [xl[:, a:b, s].T for a, b in zip(offs[:-1], offs[1:])]
+        else:
+            frames = [xl[k, :, :, s].T for k in range(xl.shape[0])]
+        per.append([g.process_packet(np.ascontiguousarray(f), bit_depth=16)
+                    for f in frames])
+
+    def planes(key, axis):
+        if sched:               # each lane's packets joined in time
+            return np.stack([np.concatenate([np.asarray(p[key])
+                                             for p in pk], axis=axis)
+                             for pk in per], axis=-1)
+        return np.stack([np.stack([np.asarray(p[key]) for p in pk])
+                         for pk in per], axis=-1)
+
+    s24 = np.moveaxis(planes("spdif", 1), -2, -3)
+    pdm = np.stack([np.array([w for p in pk for w in p["pdm_words"]],
+                             np.uint32).reshape(-1, 8) for pk in per], -1)
+    return {"out": planes("buf_out", -1),
+            "s24": s24.reshape(*s24.shape[:-4], -1, *s24.shape[-2:]),
+            "pdm": pdm.view(np.int32),
+            "packet_peaks": np.stack([np.array([p["peaks"] for p in pk])
+                                      for pk in per], axis=-1)}
+
+
+def _edge2(out: dict) -> dict:
+    """An engine's outputs on its first and last lane, as NumPy."""
+    return {k: v.index_select(-1, torch.tensor(
+        [0, v.shape[-1] - 1], device=v.device)).cpu().numpy()
+        for k, v in out.items()}
+
+
+def fuzz_q28_words(label: str, got: dict, want: dict, clips) -> None:
+    """A Q28 segment's words on the edge lanes against the golden model's:
+    out, s24 and PDM equal; each channel's peak (max |x| >> 13) & 0xFFFF
+    the largest of its packets' where it never clipped (no packet's
+    value wrapped), else its loudest packet's, one of theirs."""
+    for k in got:
+        if k == "peaks":
+            for ch, s in np.ndindex(*got[k].shape):
+                pk = want["packet_peaks"][:, ch, s]
+                ok = (got[k][ch, s] in pk if clips[s] >> ch & 1
+                      else got[k][ch, s] == pk.max())
+                if not ok:
+                    fail(f"{label}: peak of channel {ch}, lane {s}: "
+                         f"{got[k][ch, s]}, packets {pk.tolist()}")
+        elif got[k].shape != want[k].shape or not np.array_equal(got[k],
+                                                                  want[k]):
+            n = (got[k] != want[k]).sum() if got[k].shape == want[k].shape \
+                else "shape"
+            fail(f"{label}: {k} differs from the golden model's ({n})")
+
+
+def phase_fuzz(dev, card: str) -> dict:
+    """tests/test_fuzz.py's random configs at full width (16384 lanes x
+    24 packets of 48), each one segment against the port's golden model
+    on the first and the last lane: the Q28 chain (FUZZ_Q28) and its
+    random aperiodic schedules (FUZZ_SCHED, 3 segments of 9 packets)
+    word for word, the float scan lowering (FUZZ_FLOAT, PDM off) bit for
+    bit, and the block lowering card against CPU (float_close), or where
+    the CPU port breaks 1e-6 (F1) no farther than FUZZ_BLOCK_RATIO times
+    the CPU port's distance.  Every kernel call of a first segment is held
+    against its plain version at its full shape on the edge lanes
+    (check_path_call; PDM calls in phase_pdm_plain).  Launch counts are
+    set to 0 before each segment and read after it; the float cascade
+    libraries that its new band-kinds signatures need are built at first
+    use and each build's time printed."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.golden.model import GoldenDevice
+    from dspi_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+    builds: dict = {}
+    held = [0]
+
+    def segment(eng, x, record: bool):
+        calls = []
+        _zero_launches()
+        with recording(calls if record else []):
+            out = eng.process(x)
+        torch.cuda.synchronize()
+        for k, n in _launches().items():
+            launches[k] = launches.get(k, 0) + n
+        for kind, fn, a, k in calls:
+            if kind == "pdm":
+                hold_pdm(f"fuzz {list(a[0].shape)}", *a, fn(*a))
+            else:
+                check_path_call(kind, fn, a, k)
+            held[0] += 1
+        return out
+
+    def built_at_first_use(*a, **k):
+        report = build_all(*a, **k)
+        builds.update({key: round(r["seconds"], 1)
+                       for key, r in report.items()})
+        return report
+
+    build_all = build.build_all
+    build.build_all = built_at_first_use
+    try:
+        for seed in FUZZ_Q28 + FUZZ_SCHED:
+            t1 = time.perf_counter()
+            cfg, sched = fuzz_case(seed, Platform.RP2040, seed in FUZZ_SCHED)
+            eng = Engine(cfg, n_streams=STREAMS, emit="full", schedule=sched,
+                         device=dev)
+            golds = [GoldenDevice(cfg.copy()) for _ in range(2)]
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            nseg = FUZZ_SCHED_SEGMENTS if sched else 1
+            for i in range(nseg):
+                shape = ((2, sum(sched), STREAMS) if sched else
+                         (FUZZ_PACKETS, 2, BLOCK, STREAMS))
+                x = _rand_i32(gen, -16383, 16383, shape, dev)
+                got = _edge2(segment(eng, x, record=i == 0))
+                want = golden_lanes(golds, x, sched)
+                fuzz_q28_words(f"fuzz Q28 seed {seed} segment {i}", got,
+                               want, [g.clip_flags for g in golds])
+            clips = _edge2({"c": eng.state.clip_flags})["c"]
+            if clips.tolist() != [g.clip_flags for g in golds]:
+                fail(f"fuzz Q28 seed {seed}: clip flags differ")
+            if not np.abs(want["s24"]).any():
+                fail(f"fuzz Q28 seed {seed}: the golden model is silent")
+            print(f"fuzz Q28 seed {seed}"
+                  f"{f' schedule {sched} x {nseg}' if sched else ''}: "
+                  f"{STREAMS} lanes, out/s24/PDM/peaks/clip flags word for "
+                  f"word with the golden model on lanes 0 and {STREAMS - 1} "
+                  f"({time.perf_counter() - t1:.1f} s)", flush=True)
+            del eng, x
+
+        block = {}
+        for seed in FUZZ_FLOAT:
+            t1 = time.perf_counter()
+            cfg, _ = fuzz_case(seed, Platform.RP2350)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            x = _rand_i32(gen, -16383, 16383,
+                          (FUZZ_PACKETS, 2, BLOCK, STREAMS), dev)
+            want = golden_lanes([GoldenDevice(cfg.copy()) for _ in range(2)],
+                                x, None)["out"]
+            eng = Engine(cfg, n_streams=STREAMS, emit="full", pdm=False,
+                         mxu=False, device=dev)
+            got = _edge2(segment(eng, x, record=True))["out"]
+            if not np.array_equal(got, want):
+                fail(f"fuzz scan seed {seed}: out differs from the golden "
+                     f"model's, relative RMS {rel_rms(got, want):.3e}")
+            t_scan = time.perf_counter() - t1
+            eng = Engine(cfg, n_streams=STREAMS, emit="full", pdm=False,
+                         device=dev)
+            on_card = {k: torch.from_numpy(v) for k, v in
+                       _edge2(segment(eng, x, record=False)).items()}
+            del eng
+            cpu = Engine(cfg, n_streams=2, emit="full", pdm=False,
+                         device="cpu").process(_edge2({"x": x})["x"])
+            d_card = rel_rms(on_card["out"].numpy(), want)
+            d_cpu = rel_rms(cpu["out"].numpy(), want)
+            d_cross = rel_rms(on_card["out"].numpy(), cpu["out"].numpy())
+            if d_cpu < 1e-6:
+                w, _ = float_close(f"fuzz block seed {seed} card vs CPU",
+                                   on_card, cpu)
+                how = f"card vs CPU float_close, worst {w:.3e}"
+            elif d_card > FUZZ_BLOCK_RATIO * d_cpu:
+                fail(f"fuzz block seed {seed}: card {d_card:.3e} from the "
+                     f"golden model, > {FUZZ_BLOCK_RATIO} x the CPU port's "
+                     f"{d_cpu:.3e}")
+            else:
+                how = (f"F1: card / CPU distance {d_card / d_cpu:.3f} <= "
+                       f"{FUZZ_BLOCK_RATIO}")
+            block[seed] = {"card": d_card, "cpu": d_cpu,
+                           "card_vs_cpu": d_cross}
+            print(f"fuzz float seed {seed}: {STREAMS} lanes; the scan bit for"
+                  f" bit with the golden model on lanes 0 and {STREAMS - 1} "
+                  f"({t_scan:.1f} s, float cascade builds included); the "
+                  f"block lowering {d_card:.3e} from it on the card, "
+                  f"{d_cpu:.3e} on the CPU, card vs CPU {d_cross:.3e} "
+                  f"({how}; {time.perf_counter() - t1:.1f} s in all)",
+                  flush=True)
+    finally:
+        build.build_all = build_all
+    for key, sec in builds.items():
+        print(f"  built at first use: {key} in {sec} s", flush=True)
+    need = ("eq_q28", "eq_q28_sched", "xf_q28", "pdm", "eq_f32", "xf_f32")
+    if not all(launches.get(k) for k in need):
+        fail(f"fuzz: launches {launches} miss one of {need}")
+    seconds = time.perf_counter() - t0
+    print(f"fuzz phase: {seconds:.1f} s; launches {launches}; {held[0]} "
+          f"kernel calls held against their plain versions; card {card}",
+          flush=True)
+    return {"launches": launches, "seconds": seconds, "builds": builds,
+            "block": block}
+
+
+def _pdm_plain_worker(x, s16):
+    """pdm_words_plain in a worker process, on one thread."""
+    from dspi_tpu_torch.kernels.pdm import pdm_words_plain
+
+    torch.set_num_threads(1)
+    return pdm_words_plain(x, s16)
+
+
 def phase_pdm_plain() -> dict:
     """Every PDM call held by hold_pdm against the plain version on the
     CPU, word for word: the held lanes of all calls of one segment length
-    side by side in one plain call."""
-    from dspi_tpu_torch.kernels.pdm import pdm_words_plain
+    side by side in one plain call, the plain calls of the segment lengths
+    in parallel, one worker process each (each a Python loop over its
+    samples)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
     by_len: dict = {}
     for held in PDM_HELD:
         by_len.setdefault(held[1].shape[0], []).append(held)
     t0 = time.perf_counter()
-    for items in by_len.values():
-        x, s16 = (torch.cat([h[i] for h in items], -1) for i in (1, 2))
-        words, s_out = pdm_words_plain(x, s16)
+    groups = list(by_len.values())
+    args = [tuple(torch.cat([h[i] for h in items], -1) for i in (1, 2))
+            for items in groups]
+    with ProcessPoolExecutor(
+            len(args), mp_context=multiprocessing.get_context("spawn")) as ex:
+        plain = list(ex.map(_pdm_plain_worker, *zip(*args)))
+    for items, (words, s_out) in zip(groups, plain):
         lo = 0
         for label, xi, _, w, s in items:
             hi = lo + xi.shape[-1]
@@ -2411,6 +2723,7 @@ def main() -> None:
     phase_scan_card_vs_cpu(dev)
     serving = phase_serving(card)
     phase_runner_card_vs_cpu(dev)
+    fuzz = phase_fuzz(dev, card)
     pdm_row.update(phase_pdm_plain())
     bench_head = phase_bench(dev, card, main_path)
     full96 = phase_full96(dev, card)
@@ -2435,7 +2748,8 @@ def main() -> None:
              "bench_stages_full96": full96["launches"],
              **{f"bench_stages_{st}": r["launches"]
                 for st, r in stages.items()},
-             "graft_dryrun_multichip": graft["launches"]}
+             "graft_dryrun_multichip": graft["launches"],
+             "fuzz_random_configs": fuzz["launches"]}
     # the cascade kernel's scalar-coefficient, uniform-packet mode: its
     # launches less the other modes' (no path combines lane_cf and a
     # schedule)
@@ -2525,7 +2839,7 @@ def main() -> None:
         "headline": bench_head, "full96": full96,
         "stages": {st: r["entries"] for st, r in stages.items()},
         "stage_settings": STAGE_SMALL, "graft": graft,
-        "firmware_oracles": oracle}}), flush=True)
+        "firmware_oracles": oracle}, "fuzz": fuzz}), flush=True)
     print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
                                   xf_row, eqf_row, xff_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,11 +37,32 @@ Two differences of form, not of function:
     (16384 streams x 128 packets of 48) the largest hoisted buffers are
     ~3.6 GB each, far inside the card's memory.
 
-Numerics: the products re-round what the firmware computes sequentially,
-so the path is held to <= 1e-6 relative RMS against the golden model.
-Every product runs in full float32 — TF32 off and float32 matmul precision
-"highest", the counterpart of the JAX package's Precision.HIGHEST (its
-reduced form measured 28x over the 1e-6 budget there).  ``require_fp32``
+Numerics: the products re-round what the firmware computes sequentially.
+On the shipped configs (``configs.full_chain_config``,
+``configs.hetero_variants`` and the tests' ``rich_config``) the path holds
+<= 1e-6 relative RMS against the golden model.  On random configs
+(tests/test_fuzz.py's ``random_config``) it breaks that budget, for one
+of two reasons (fault F1; tests/test_torch_fuzz_float{1,2,3}.py,
+``test_block_lowering_budget`` a strict xfail on each such seed, and
+``test_float_random_config[<seed>-exact_map_class]``, tests/fuzz_twin.py):
+
+  (a) its own rounding, the matrices built and applied in float32: the
+      exact map of the same coefficients (float64 build and apply) meets
+      1e-6 (seeds 1, 2, 4, 6, 21, 202, 404; the block path 1.08e-6 to
+      2.01e-6);
+  (b) the firmware's own float32 recursion: even the exact map sits
+      1.37e-6 to 3.94e-5 from the golden model (seeds 3, 5, 12, 35, 36,
+      101, 505), which no lowering that does not repeat the recursion
+      sample by sample can meet.
+
+Where 1e-6 must hold on any config, the scan lowering (``mxu=False``) is
+the path that holds it: it equals the golden model bit for bit on every
+one of those seeds.
+
+Every product runs in full float32 — TF32 off and float32 matmul
+precision "highest", the counterpart of the JAX package's
+Precision.HIGHEST (its reduced form measured 28x over the 1e-6 budget
+there).  ``require_fp32``
 sets both; each product checks them first.
 """
 

@@ -10,10 +10,13 @@ Twins of the firmware's integer helpers, bit for bit:
     (config.h:547-551, usb_audio.c:1254-1255).
   - ``f32_to_i32`` — ARM ``vcvt.s32.f32`` (truncate toward zero, saturate,
     NaN -> 0).
+  - ``xorshift32`` — the PDM dither PRNG (pdm_generator.c:62-68).
 
 torch int32 add, sub, mul and left shift wrap two's-complement on the CPU
 and on CUDA; ``>>`` on int32 is arithmetic.  torch has no usable uint32, so
-the one unsigned product (``q15_mul``'s low partial) runs in int64.
+the one unsigned product (``q15_mul``'s low partial) runs in int64, and
+uint32 words (the PRNG state) are carried as their int32 bit patterns,
+a logical right shift being the arithmetic one and a mask.
 """
 
 from __future__ import annotations
@@ -73,3 +76,12 @@ def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
     out = x.clamp(-2147483648.0, 2147483520.0).trunc().to(torch.int32)
     return torch.where(x >= 2147483648.0,
                        torch.full_like(out, _I32_MAX), out)
+
+
+def xorshift32(state: torch.Tensor) -> torch.Tensor:
+    """The PDM dither PRNG (pdm_generator.c:62-68) on int32 tensors that
+    hold the uint32 state's bit patterns; ``>> 17`` is logical, so the
+    sign bits the arithmetic shift copies in are masked off."""
+    state = state ^ (state << 13)
+    state = state ^ ((state >> 17) & 0x7FFF)
+    return state ^ (state << 5)

@@ -26,7 +26,7 @@ the sign-mask form, so the two check each other).  It takes and returns
 the kernel's 16-row int32 state layout (``pdm_cuda.pack_pdm_state``).
 
 torch has no uint32 arithmetic: the xorshift state is carried as int32
-bits, and its logical right shift is an arithmetic shift plus a mask.
+bits (``core.qmath.xorshift32``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core import constants as C
+from ..core.qmath import xorshift32
 
 _I32 = torch.int32
 # the silence word is above 2^31: carried as its int32 bit pattern
@@ -107,9 +108,7 @@ def _sample(err, err2, ns, rng, target):
     x1, x2, y1, y2, acc = ns
     words = []
     for _ in range(C.PDM_CHUNKS):
-        rng = rng ^ (rng << 13)
-        rng = rng ^ ((rng >> 17) & 0x7FFF)          # logical >> 17
-        rng = rng ^ (rng << 5)
+        rng = xorshift32(rng)
         raw = (rng & C.PDM_DITHER_MASK) - (C.PDM_DITHER_MASK >> 1)
         acc = ((acc * 248) >> 8) + ((err2 >> 8) >> 6)
         inp = raw - acc

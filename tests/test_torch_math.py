@@ -139,3 +139,30 @@ def test_smooth_det():
     target[:64] = 0.0
     _same(tf.smooth_det(_t(alpha), _t(prev), _t(target)),
           jf.smooth_det(alpha, prev, target))
+
+
+XORSHIFT_SEEDS = [123456789, 0x80000000, 1, 42, 0xFFFFFFFF, 0xDEADBEEF,
+                  0x7FFFFFFF]
+
+
+def test_xorshift32():
+    """The PDM dither PRNG on int32 tensors, word for word over 16 steps
+    against the JAX package's on uint32 NumPy and on jnp and the port's
+    Python-int reference (golden/qref.py), the sign bit included."""
+    import jax.numpy as jnp
+
+    from dspi_tpu_torch.golden import qref
+
+    seeds = np.array(XORSHIFT_SEEDS, np.uint32)
+    s_t = _t(seeds.view(np.int32))
+    s_np, s_j = seeds, jnp.asarray(seeds)
+    ref = [int(v) for v in seeds]
+    for _ in range(16):
+        s_t = tq.xorshift32(s_t)
+        s_np = jq.xorshift32(s_np)
+        s_j = jq.xorshift32(s_j)
+        ref = [qref.xorshift32(r) for r in ref]
+        assert s_t.dtype == torch.int32
+        _same(s_t, s_np.view(np.int32))
+        _same(s_t, np.asarray(s_j).view(np.int32))
+        assert s_t.numpy().view(np.uint32).tolist() == ref
