@@ -41,6 +41,7 @@ import torch
 
 from ..core import constants as C
 from ..params.design import derive
+from ..runtime.telemetry import span
 from . import mxu
 from .pack import (ChainParams, ChainState, _NDIM, build_params,
                    build_static, from_numpy, init_state, lane_params,
@@ -365,13 +366,15 @@ class HeteroServer:
         valid = self._valid
 
         def fn(params, state, x, pm):
-            state, out = raw(params, state, x.index_select(-1, perm), pm,
-                             wire_lanes=valid)
+            with span("dspi.bucket_in"):
+                x = x.index_select(-1, perm)
+            state, out = raw(params, state, x, pm, wire_lanes=valid)
             # reduced wire folds stay per bucket, [K, npairs], each of its
             # real streams' words only (padding lanes are left out)
-            return state, {k: v.movedim(-1, 0) if k == "wire_sum"
-                           else v.index_select(-1, inv)
-                           for k, v in out.items()}
+            with span("dspi.bucket_out"):
+                return state, {k: v.movedim(-1, 0) if k == "wire_sum"
+                               else v.index_select(-1, inv)
+                               for k, v in out.items()}
 
         return fn
 

@@ -58,6 +58,7 @@ from ..kernels.eq_f32_cuda import f32_cascades
 from ..kernels.pdm_cuda import pdm_segment
 from ..kernels.xf_cuda import xf_q28
 from ..kernels.xf_f32_cuda import xf_f32
+from ..runtime.telemetry import span
 from .pack import SKIP, TDF2, StaticChain
 
 _F32 = torch.float32
@@ -476,199 +477,216 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     Returns (state', outputs) as the JAX package's ``_process_float``: the
     input state is not modified.  With a schedule, emit='full' outputs are
     time-flat ([K, Ttot, B])."""
-    from . import mxu
+    with span("dspi.segment"):
+        from . import mxu
 
-    if static.mxu and blocks is None:
-        raise ValueError("the block-matmul lowering needs its block "
-                         "matrices (blocks=mxu.build_blocks(...))")
-    x2, sched, Npkt, Ttot = _segment_layout(static, x)
-    B = x2.shape[-1]
-    dev = x.device
-    nout = static.n_outputs
-    ns2 = static.n_spdif * 2
-    master_bands, out_bands = _chain_structure(static)
-    if preset_mute is None:
-        preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
-    st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone(),
-                        eq_c=state.eq_c.clone(), eq_d=state.eq_d.clone())
+        if static.mxu and blocks is None:
+            raise ValueError("the block-matmul lowering needs its block "
+                             "matrices (blocks=mxu.build_blocks(...))")
+        x2, sched, Npkt, Ttot = _segment_layout(static, x)
+        B = x2.shape[-1]
+        dev = x.device
+        nout = static.n_outputs
+        ns2 = static.n_spdif * 2
+        master_bands, out_bands = _chain_structure(static)
+        if preset_mute is None:
+            preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
+        st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone(),
+                            eq_c=state.eq_c.clone(), eq_d=state.eq_d.clone())
 
-    # per-packet volume staging (usb_audio.c:569-574), [Npkt, 1|B]
-    vol_mul_master = (p.vol_mul * preset_mute[:, None]) * p.master_vol
+        with span("dspi.unpack"):
+            # per-packet volume staging (usb_audio.c:569-574), [Npkt, 1|B]
+            vol_mul_master = (p.vol_mul * preset_mute[:, None]) * p.master_vol
 
-    # ---- PASS 1: unpack + preamp (usb_audio.c:678-686) ----
-    bl = x2[0].to(_F32) * p.unpack_gain[0]
-    br = x2[1].to(_F32) * p.unpack_gain[1]
-    del x2
+            # ---- PASS 1: unpack + preamp (usb_audio.c:678-686) ----
+            bl = x2[0].to(_F32) * p.unpack_gain[0]
+            br = x2[1].to(_F32) * p.unpack_gain[1]
+            del x2
 
-    # ---- loudness + master EQ (+ the leveller envelope at packet ends):
-    # block matmuls, or scan A as the float cascade kernel ----
-    if static.mxu:
-        if static.loudness_on or master_bands:
-            st, bl, br = mxu.chain_a(static, p, blocks, st, bl, br,
-                                     master_bands, Npkt, groups)
+        with span("dspi.master"):
+            # ---- loudness + master EQ (+ the leveller envelope at packet
+            # ends): block matmuls, or scan A as the float cascade kernel
+            if static.mxu:
+                if static.loudness_on or master_bands:
+                    st, bl, br = mxu.chain_a(static, p, blocks, st, bl, br,
+                                             master_bands, Npkt, groups)
+                if static.leveller_on:
+                    env_l, env_r = mxu.env_packet_ends(static, p, st, bl,
+                                                       br, Npkt)
+            elif static.loudness_on or master_bands or static.leveller_on:
+                st, bl, br, env = _f32_master(static, p, st, bl, br,
+                                              master_bands, sched)
+                if static.leveller_on:
+                    env_l, env_r = env[0], env[1]
+
+        # ---- PASS 2.5 leveller block phase (leveller.c:147-262) ----
         if static.leveller_on:
-            env_l, env_r = mxu.env_packet_ends(static, p, st, bl, br, Npkt)
-    elif static.loudness_on or master_bands or static.leveller_on:
-        st, bl, br, env = _f32_master(static, p, st, bl, br, master_bands,
-                                      sched)
-        if static.leveller_on:
-            env_l, env_r = env[0], env[1]
+            with span("dspi.leveller"):
+                st = st._replace(lev_env=torch.stack([env_l[-1], env_r[-1]]))
+                a_att, a_rel = p.lev[1], p.lev[2]
+                thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
+                max_gain, makeup = p.lev[7], p.lev[8]
+                slope, inv_two_knee = p.lev[9], p.lev[10]
 
-    # ---- PASS 2.5 leveller block phase (leveller.c:147-262) ----
-    if static.leveller_on:
-        st = st._replace(lev_env=torch.stack([env_l[-1], env_r[-1]]))
-        a_att, a_rel = p.lev[1], p.lev[2]
-        thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
-        max_gain, makeup = p.lev[7], p.lev[8]
-        slope, inv_two_knee = p.lev[9], p.lev[10]
+                # gain computer, vectorized over packets
+                rms_sq = torch.maximum(env_l, env_r)
+                rms_db = 10.0 * fmath.log10_f32(rms_sq + 1e-30)
+                half = knee * 0.5
+                d = thresh + half - rms_db
+                zero = torch.zeros_like(rms_db)
+                gc = torch.where(
+                    rms_db > thresh + half, zero,
+                    torch.where(rms_db >= thresh - half,
+                                slope * d * d * inv_two_knee,
+                                (thresh - rms_db) * slope))
+                gc = torch.minimum(gc + makeup, max_gain)
+                gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
 
-        # gain computer, vectorized over packets
-        rms_sq = torch.maximum(env_l, env_r)
-        rms_db = 10.0 * fmath.log10_f32(rms_sq + 1e-30)
-        half = knee * 0.5
-        d = thresh + half - rms_db
-        zero = torch.zeros_like(rms_db)
-        gc = torch.where(
-            rms_db > thresh + half, zero,
-            torch.where(rms_db >= thresh - half,
-                        slope * d * d * inv_two_knee,
-                        (thresh - rms_db) * slope))
-        gc = torch.minimum(gc + makeup, max_gain)
-        gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
+                # block-rate attack/release smoothing: a recurrence over
+                # packets, with the alpha^count correction
+                # (leveller.c:223-227) hoisted; the count is each packet's
+                # length ([Npkt, 1|B])
+                counts = torch.from_numpy(
+                    sched.astype(np.float32))[:, None].to(dev)
+                pow_att = fmath.pow_f32(a_att, counts)
+                pow_rel = fmath.pow_f32(a_rel, counts)
+                gdb = st.lev_gain_db
+                gdbs = []
+                for k in range(Npkt):
+                    alpha = torch.where(gc[k] < gdb, pow_att[k], pow_rel[k])
+                    gdb = fmath.smooth_det(alpha, gdb, gc[k])
+                    gdbs.append(gdb)
+                # [Npkt, B]
+                g_cur_p = fmath.exp10_f32(torch.stack(gdbs) * _INV20)
+                g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
+                st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
+                                 lev_gain_prev=g_prev_p[-1])
 
-        # block-rate attack/release smoothing: a recurrence over packets,
-        # with the alpha^count correction (leveller.c:223-227) hoisted;
-        # the count is each packet's length ([Npkt, 1|B])
-        counts = torch.from_numpy(sched.astype(np.float32))[:, None].to(dev)
-        pow_att = fmath.pow_f32(a_att, counts)
-        pow_rel = fmath.pow_f32(a_rel, counts)
-        gdb = st.lev_gain_db
-        gdbs = []
-        for k in range(Npkt):
-            alpha = torch.where(gc[k] < gdb, pow_att[k], pow_rel[k])
-            gdb = fmath.smooth_det(alpha, gdb, gc[k])
-            gdbs.append(gdb)
-        g_cur_p = fmath.exp10_f32(torch.stack(gdbs) * _INV20)   # [Npkt, B]
-        g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
-        st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
-                         lev_gain_prev=g_prev_p[-1])
+                # gain ramp with the firmware's sequential accumulation, all
+                # packets at once over the longest packet, then each packet's
+                # first n rows; a one-sample packet jumps to g_cur
+                # (leveller.c:216-221)
+                Tmax = int(sched.max())
+                if Tmax == 1:
+                    gains = g_cur_p
+                else:
+                    inv = np.zeros(Npkt, np.float32)
+                    nz = sched > 1
+                    inv[nz] = np.float32(1.0) / (sched[nz] - 1).astype(
+                        np.float32)
+                    step = (g_cur_p - g_prev_p) * torch.from_numpy(
+                        inv)[:, None].to(dev)
+                    g = g_prev_p
+                    if not nz.all():
+                        one = torch.from_numpy(~nz)[:, None].to(dev)
+                        g = torch.where(one, g_cur_p, g_prev_p)
+                        step = torch.where(one, torch.zeros_like(step), step)
+                    gains = torch.empty((Npkt, Tmax, B), dtype=_F32,
+                                        device=dev)
+                    for i in range(Tmax):
+                        gains[:, i] = g
+                        g = g + step
+                    gains = _pkts_to_flat(gains, sched, Ttot)
 
-        # gain ramp with the firmware's sequential accumulation, all
-        # packets at once over the longest packet, then each packet's
-        # first n rows; a one-sample packet jumps to g_cur
-        # (leveller.c:216-221)
-        Tmax = int(sched.max())
-        if Tmax == 1:
-            gains = g_cur_p
-        else:
-            inv = np.zeros(Npkt, np.float32)
-            nz = sched > 1
-            inv[nz] = np.float32(1.0) / (sched[nz] - 1).astype(np.float32)
-            step = (g_cur_p - g_prev_p) * torch.from_numpy(inv)[:, None].to(
-                dev)
-            g = g_prev_p
-            if not nz.all():
-                one = torch.from_numpy(~nz)[:, None].to(dev)
-                g = torch.where(one, g_cur_p, g_prev_p)
-                step = torch.where(one, torch.zeros_like(step), step)
-            gains = torch.empty((Npkt, Tmax, B), dtype=_F32, device=dev)
-            for i in range(Tmax):
-                gains[:, i] = g
-                g = g + step
-            gains = _pkts_to_flat(gains, sched, Ttot)
+                if static.leveller_lookahead:
+                    # time-ordered lookahead ring: the delayed stream is a
+                    # window of concat(ring, segment)
+                    comb_l = torch.cat([st.lev_la[0], bl], dim=0)
+                    comb_r = torch.cat([st.lev_la[1], br], dim=0)
+                    out_l, out_r = comb_l[:Ttot], comb_r[:Ttot]
+                    st = st._replace(lev_la=torch.stack([comb_l[Ttot:],
+                                                         comb_r[Ttot:]]))
+                else:
+                    out_l, out_r = bl, br
 
-        if static.leveller_lookahead:
-            # time-ordered lookahead ring: the delayed stream is a window
-            # of concat(ring, segment)
-            comb_l = torch.cat([st.lev_la[0], bl], dim=0)
-            comb_r = torch.cat([st.lev_la[1], br], dim=0)
-            out_l, out_r = comb_l[:Ttot], comb_r[:Ttot]
-            st = st._replace(lev_la=torch.stack([comb_l[Ttot:],
-                                                 comb_r[Ttot:]]))
-        else:
-            out_l, out_r = bl, br
+                peak = torch.maximum(out_l.abs(), out_r.abs())
+                max_g = fmath.det_div(
+                    float(np.float32(C.LEVELLER_LIMITER_CEIL)), peak)
+                one = torch.ones_like(max_g)
+                cap = torch.where(max_g > 1.0, max_g, one)
+                g_eff = torch.where(
+                    (peak > 0.0) & (gains > 1.0) & (max_g < gains), cap,
+                    gains)
+                del peak, max_g, cap, gains
+                bl = out_l * g_eff
+                br = out_r * g_eff
+                del out_l, out_r, g_eff
 
-        peak = torch.maximum(out_l.abs(), out_r.abs())
-        max_g = fmath.det_div(float(np.float32(C.LEVELLER_LIMITER_CEIL)),
-                              peak)
-        one = torch.ones_like(max_g)
-        cap = torch.where(max_g > 1.0, max_g, one)
-        g_eff = torch.where((peak > 0.0) & (gains > 1.0) & (max_g < gains),
-                            cap, gains)
-        del peak, max_g, cap, gains
-        bl = out_l * g_eff
-        br = out_r * g_eff
-        del out_l, out_r, g_eff
+        with span("dspi.outputs"):
+            # ---- PASS 3: master peaks (pre-crossfeed) ----
+            peak_ml = bl.abs().amax(dim=0)
+            peak_mr = br.abs().amax(dim=0)
 
-    # ---- PASS 3: master peaks (pre-crossfeed) ----
-    peak_ml = bl.abs().amax(dim=0)
-    peak_mr = br.abs().amax(dim=0)
+            # ---- PASS 3-5: crossfeed + matrix + per-output EQ: block
+            # matmuls, or the crossfeed kernel, the matrix and scan B as the
+            # cascade kernel ----
+            if static.mxu:
+                st, bufs = mxu.chain_b(static, p, blocks, st, bl, br,
+                                       out_bands, Npkt, groups)
+            else:
+                st, bufs = _f32_outputs(static, p, st, bl, br, out_bands,
+                                        sched)
+            del bl, br
 
-    # ---- PASS 3-5: crossfeed + matrix + per-output EQ: block matmuls, or
-    # the crossfeed kernel, the matrix and scan B as the cascade kernel ----
-    if static.mxu:
-        st, bufs = mxu.chain_b(static, p, blocks, st, bl, br, out_bands,
-                               Npkt, groups)
-    else:
-        st, bufs = _f32_outputs(static, p, st, bl, br, out_bands, sched)
-    del bl, br
+        with span("dspi.tail"):
+            # output gains (usb_audio.c:885-894), per packet through the
+            # preset-mute envelope
+            for o in range(nout):
+                if not static.output_enabled[o]:
+                    continue
+                if static.output_mute[o]:
+                    bufs[o] = torch.zeros_like(bufs[o])
+                    continue
+                gain = p.out_gain[o] * vol_mul_master       # [Npkt, 1|B]
+                if static.schedule:           # [Ttot, 1|B] along the packets
+                    gain = _per_packet(gain, sched, Ttot)
+                    y = bufs[o]
+                else:                         # [Npkt, 1, 1|B]
+                    gain = gain[:, None, :]
+                    y = bufs[o].reshape(Npkt, -1, B)
+                bufs[o] = torch.where(gain == 0.0, torch.zeros_like(y),
+                                      y * gain).reshape(Ttot, B)
 
-    # output gains (usb_audio.c:885-894), per packet through the
-    # preset-mute envelope
-    for o in range(nout):
-        if not static.output_enabled[o]:
-            continue
-        if static.output_mute[o]:
-            bufs[o] = torch.zeros_like(bufs[o])
-            continue
-        gain = p.out_gain[o] * vol_mul_master               # [Npkt, 1|B]
-        if static.schedule:                   # [Ttot, 1|B] along the packets
-            gain = _per_packet(gain, sched, Ttot)
-            y = bufs[o]
-        else:                                 # [Npkt, 1, 1|B]
-            gain = gain[:, None, :]
-            y = bufs[o].reshape(Npkt, -1, B)
-        bufs[o] = torch.where(gain == 0.0, torch.zeros_like(y),
-                              y * gain).reshape(Ttot, B)
+            # delay lines (usb_audio.c:897-911)
+            if static.delayed_outputs:
+                D = static.delay_ring
+                rows = []
+                for k, o in enumerate(static.delayed_outputs):
+                    bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
+                                                   p.delay_samples[k], Ttot, D)
+                    rows.append(ring_k)
+                st = st._replace(delay=torch.stack(rows))
 
-    # delay lines (usb_audio.c:897-911)
-    if static.delayed_outputs:
-        D = static.delay_ring
-        rows = []
-        for k, o in enumerate(static.delayed_outputs):
-            bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
-                                           p.delay_samples[k], Ttot, D)
-            rows.append(ring_k)
-        st = st._replace(delay=torch.stack(rows))
+            # peaks / clip flags (sticky over the segment == sticky per packet)
+            peaks = [peak_ml, peak_mr]
+            for o in range(ns2):
+                peaks.append(bufs[o].abs().amax(dim=0))
+            if static.output_enabled[nout - 1]:
+                peaks.append(bufs[nout - 1].abs().amax(dim=0))
+            else:
+                peaks.append(torch.zeros_like(peak_ml))
+            peaks = torch.stack(peaks)                       # [nch', B]
+            clip = st.clip_flags
+            for chi in range(peaks.shape[0]):
+                ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
+                clip = clip | ((peaks[chi] > C.CLIP_THRESH_F).to(torch.int32)
+                               << ch_bit)
+            st = st._replace(clip_flags=clip)
 
-    # peaks / clip flags (sticky over the segment == sticky per packet)
-    peaks = [peak_ml, peak_mr]
-    for o in range(ns2):
-        peaks.append(bufs[o].abs().amax(dim=0))
-    if static.output_enabled[nout - 1]:
-        peaks.append(bufs[nout - 1].abs().amax(dim=0))
-    else:
-        peaks.append(torch.zeros_like(peak_ml))
-    peaks = torch.stack(peaks)                               # [nch', B]
-    clip = st.clip_flags
-    for chi in range(peaks.shape[0]):
-        ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
-        clip = clip | ((peaks[chi] > C.CLIP_THRESH_F).to(torch.int32)
-                       << ch_bit)
-    st = st._replace(clip_flags=clip)
-
-    outputs = {}
-    # peak u16 conversion (usb_audio.c:841,921): trunc(min(1,peak)*32767)
-    outputs["peaks"] = (torch.clamp(peaks, max=1.0) * 32767.0).trunc().to(
-        torch.int32)
-    sub = (f32_to_i32(bufs[nout - 1] * float(1 << 28)) if static.pdm_on
-           else None)
-    # S/PDIF conversion (usb_audio.c:934-940)
-    st = _s24_wire_pdm(
-        static, st, outputs, bufs,
-        lambda v: f32_to_i32(v.clamp(-1.0, 1.0) * 8388607.0), sub, sched,
-        Npkt, Ttot, groups, wire_lanes)
-    return st, outputs
+        with span("dspi.wire"):
+            outputs = {}
+            # peak u16 conversion (usb_audio.c:841,921):
+            # trunc(min(1,peak)*32767)
+            outputs["peaks"] = (torch.clamp(peaks, max=1.0)
+                                * 32767.0).trunc().to(torch.int32)
+            sub = (f32_to_i32(bufs[nout - 1] * float(1 << 28)) if static.pdm_on
+                   else None)
+            # S/PDIF conversion (usb_audio.c:934-940)
+            st = _s24_wire_pdm(
+                static, st, outputs, bufs,
+                lambda v: f32_to_i32(v.clamp(-1.0, 1.0) * 8388607.0), sub,
+                sched, Npkt, Ttot, groups, wire_lanes)
+        return st, outputs
 
 
 # ----------------------------------------------------------------------------
@@ -825,190 +843,208 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
 
     Returns (state', outputs); the input state is not modified.  With a
     schedule, emit='full' outputs are time-flat ([K, Ttot, B])."""
-    x2, sched, Npkt, Ttot = _segment_layout(static, x)
-    B = x2.shape[-1]
-    nout = static.n_outputs
-    ns2 = static.n_spdif * 2
-    dev = x.device
-    master_bands, out_bands = _chain_structure(static)
-    if preset_mute is None:
-        preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
-    st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone())
+    with span("dspi.segment"):
+        x2, sched, Npkt, Ttot = _segment_layout(static, x)
+        B = x2.shape[-1]
+        nout = static.n_outputs
+        ns2 = static.n_spdif * 2
+        dev = x.device
+        master_bands, out_bands = _chain_structure(static)
+        if preset_mute is None:
+            preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
+        st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone())
 
-    # per-packet volume staging (usb_audio.c:975-980), Q15 [Npkt, 1|B]
-    pm_q15 = f32_to_i32(preset_mute * 32768.0 + 0.5).clamp(0, 32768)
-    vol_mul_master = q15_mul(q15_mul(p.vol_mul, pm_q15[:, None]),
-                             p.master_vol)
+        with span("dspi.unpack"):
+            # per-packet volume staging (usb_audio.c:975-980), Q15 [Npkt, 1|B]
+            pm_q15 = f32_to_i32(preset_mute * 32768.0 + 0.5).clamp(0, 32768)
+            vol_mul_master = q15_mul(q15_mul(p.vol_mul, pm_q15[:, None]),
+                                     p.master_vol)
 
-    # ---- PASS 1: unpack + preamp (usb_audio.c:996-1015) ----
-    raw = (x2 << 8) >> 2 if static.bit_depth == 24 else x2 << 14
-    del x2
-    bl = q28_mul(raw[0], p.unpack_gain[0])
-    br = q28_mul(raw[1], p.unpack_gain[1])
-    del raw
+            # ---- PASS 1: unpack + preamp (usb_audio.c:996-1015) ----
+            raw = (x2 << 8) >> 2 if static.bit_depth == 24 else x2 << 14
+            del x2
+            bl = q28_mul(raw[0], p.unpack_gain[0])
+            br = q28_mul(raw[1], p.unpack_gain[1])
+            del raw
 
-    # ---- scan A: loudness + master EQ + leveller envelope ----
-    a_rms_q28 = one_minus = None
-    if static.leveller_on:
-        a_rms_q28 = f32_to_i32(p.lev[0] * float(1 << 28))
-        one_minus = C.Q28_ONE - a_rms_q28
-    if static.loudness_on or master_bands or static.leveller_on:
-        st, bl, br, env = _q28_master(static, p, st, bl, br, master_bands,
-                                      a_rms_q28, one_minus, sched)
+        with span("dspi.master"):
+            # ---- scan A: loudness + master EQ + leveller envelope ----
+            a_rms_q28 = one_minus = None
+            if static.leveller_on:
+                a_rms_q28 = f32_to_i32(p.lev[0] * float(1 << 28))
+                one_minus = C.Q28_ONE - a_rms_q28
+            if static.loudness_on or master_bands or static.leveller_on:
+                st, bl, br, env = _q28_master(static, p, st, bl, br,
+                                              master_bands, a_rms_q28,
+                                              one_minus, sched)
 
-    # ---- PASS 2.5 leveller block phase (leveller.c:274-389) ----
-    if static.leveller_on:
-        st = st._replace(lev_env=env[:, -1].clone())
-        env_f = env.to(_F32) * _INV_Q28                      # [2, Npkt, B]
-        a_att, a_rel = p.lev[1], p.lev[2]
-        thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
-        max_gain, makeup = p.lev[7], p.lev[8]
-        slope, inv_two_knee = p.lev[9], p.lev[10]
-        rms_sq = torch.maximum(env_f[0], env_f[1])
-        rms_db = 10.0 * fmath.log10_f32(rms_sq + _TINY)
-        half = knee * 0.5
-        d = thresh + half - rms_db
-        zero = torch.zeros_like(rms_db)
-        gc = torch.where(
-            rms_db > thresh + half, zero,
-            torch.where(rms_db >= thresh - half,
-                        slope * d * d * inv_two_knee,
-                        (thresh - rms_db) * slope))
-        gc = torch.minimum(gc + makeup, max_gain)
-        gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
+        # ---- PASS 2.5 leveller block phase (leveller.c:274-389) ----
+        if static.leveller_on:
+            with span("dspi.leveller"):
+                st = st._replace(lev_env=env[:, -1].clone())
+                env_f = env.to(_F32) * _INV_Q28              # [2, Npkt, B]
+                a_att, a_rel = p.lev[1], p.lev[2]
+                thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
+                max_gain, makeup = p.lev[7], p.lev[8]
+                slope, inv_two_knee = p.lev[9], p.lev[10]
+                rms_sq = torch.maximum(env_f[0], env_f[1])
+                rms_db = 10.0 * fmath.log10_f32(rms_sq + _TINY)
+                half = knee * 0.5
+                d = thresh + half - rms_db
+                zero = torch.zeros_like(rms_db)
+                gc = torch.where(
+                    rms_db > thresh + half, zero,
+                    torch.where(rms_db >= thresh - half,
+                                slope * d * d * inv_two_knee,
+                                (thresh - rms_db) * slope))
+                gc = torch.minimum(gc + makeup, max_gain)
+                gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
 
-        # block-rate attack/release smoothing with alpha^count per packet
-        # ([Npkt, 1|B]): the loop runs smooth_det only; the Q28 gains of
-        # all packets follow in one pass
-        counts = torch.from_numpy(sched.astype(np.float32))[:, None].to(dev)
-        pow_att = fmath.pow_f32(a_att, counts)
-        pow_rel = fmath.pow_f32(a_rel, counts)
-        gdb = st.lev_gain_db
-        gdbs = []
-        for k in range(Npkt):
-            alpha = torch.where(gc[k] < gdb, pow_att[k], pow_rel[k])
-            gdb = fmath.smooth_det(alpha, gdb, gc[k])
-            gdbs.append(gdb)
-        g_cur_p = f32_to_i32(fmath.exp10_f32(torch.stack(gdbs) * _INV20)
-                             * float(C.Q28_ONE))            # [Npkt, B]
-        g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
-        st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
-                         lev_gain_prev=g_prev_p[-1])
+                # block-rate attack/release smoothing with alpha^count per
+                # packet ([Npkt, 1|B]): the loop runs smooth_det only; the
+                # Q28 gains of all packets follow in one pass
+                counts = torch.from_numpy(
+                    sched.astype(np.float32))[:, None].to(dev)
+                pow_att = fmath.pow_f32(a_att, counts)
+                pow_rel = fmath.pow_f32(a_rel, counts)
+                gdb = st.lev_gain_db
+                gdbs = []
+                for k in range(Npkt):
+                    alpha = torch.where(gc[k] < gdb, pow_att[k], pow_rel[k])
+                    gdb = fmath.smooth_det(alpha, gdb, gc[k])
+                    gdbs.append(gdb)
+                g_cur_p = f32_to_i32(                       # [Npkt, B]
+                    fmath.exp10_f32(torch.stack(gdbs) * _INV20)
+                    * float(C.Q28_ONE))
+                g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
+                st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
+                                 lev_gain_prev=g_prev_p[-1])
 
-        # interpolated gain g_prev + (int64(g_cur - g_prev) * i) / (n - 1)
-        # with C's truncating division (leveller.c:352), n the packet's
-        # length; closed form over all packets and samples, then each
-        # packet's first n rows; a one-sample packet jumps to g_cur
-        Tmax = int(sched.max())
-        if Tmax == 1:
-            gains = g_cur_p
-        else:
-            diff = g_cur_p - g_prev_p                  # int32 wrap, as C
-            sign = 1 - 2 * (diff < 0).to(torch.int64)[:, None, :]
-            # |diff| in int64, so that diff = -2^31 gives 2^31
-            q = diff.to(torch.int64).abs()[:, None, :] * torch.arange(
-                Tmax, dtype=torch.int64, device=dev)[None, :, None]
-            div = torch.from_numpy(np.maximum(sched - 1, 1))[:, None, None]
-            q = q.floor_divide_(div.to(dev)).mul_(sign).add_(
-                g_prev_p[:, None, :])
-            gains = wrap32(q)
-            del diff, sign, q
-            if (sched == 1).any():
-                one = torch.from_numpy(sched == 1)[:, None, None].to(dev)
-                gains = torch.where(one, g_cur_p[:, None, :], gains)
-            gains = _pkts_to_flat(gains, sched, Ttot)
+                # interpolated gain
+                # g_prev + (int64(g_cur - g_prev) * i) / (n - 1) with C's
+                # truncating division (leveller.c:352), n the packet's
+                # length; closed form over all packets and samples, then
+                # each packet's first n rows; a one-sample packet jumps to
+                # g_cur
+                Tmax = int(sched.max())
+                if Tmax == 1:
+                    gains = g_cur_p
+                else:
+                    diff = g_cur_p - g_prev_p          # int32 wrap, as C
+                    sign = 1 - 2 * (diff < 0).to(torch.int64)[:, None, :]
+                    # |diff| in int64, so that diff = -2^31 gives 2^31
+                    q = diff.to(torch.int64).abs()[:, None, :] * torch.arange(
+                        Tmax, dtype=torch.int64, device=dev)[None, :, None]
+                    div = torch.from_numpy(
+                        np.maximum(sched - 1, 1))[:, None, None]
+                    q = q.floor_divide_(div.to(dev)).mul_(sign).add_(
+                        g_prev_p[:, None, :])
+                    gains = wrap32(q)
+                    del diff, sign, q
+                    if (sched == 1).any():
+                        one = torch.from_numpy(
+                            sched == 1)[:, None, None].to(dev)
+                        gains = torch.where(one, g_cur_p[:, None, :], gains)
+                    gains = _pkts_to_flat(gains, sched, Ttot)
 
-        if static.leveller_lookahead:
-            # time-ordered lookahead ring: the delayed stream is a window
-            # of concat(ring, segment)
-            comb_l = torch.cat([st.lev_la[0], bl], dim=0)
-            comb_r = torch.cat([st.lev_la[1], br], dim=0)
-            out_l, out_r = comb_l[:Ttot], comb_r[:Ttot]
-            st = st._replace(lev_la=torch.stack([comb_l[Ttot:],
-                                                 comb_r[Ttot:]]))
-        else:
-            out_l, out_r = bl, br
-        del bl, br
+                if static.leveller_lookahead:
+                    # time-ordered lookahead ring: the delayed stream is a
+                    # window of concat(ring, segment)
+                    comb_l = torch.cat([st.lev_la[0], bl], dim=0)
+                    comb_r = torch.cat([st.lev_la[1], br], dim=0)
+                    out_l, out_r = comb_l[:Ttot], comb_r[:Ttot]
+                    st = st._replace(lev_la=torch.stack([comb_l[Ttot:],
+                                                         comb_r[Ttot:]]))
+                else:
+                    out_l, out_r = bl, br
+                del bl, br
 
-        # limiter (leveller.c:369-379): float peak, Q28 gain cap
-        peak = torch.maximum((out_l.to(_F32) * _INV_Q28).abs(),
-                             (out_r.to(_F32) * _INV_Q28).abs())
-        max_g = f32_to_i32(fmath.det_div(
-            float(np.float32(C.LEVELLER_LIMITER_CEIL)), peak)
-            * float(C.Q28_ONE))
-        g_eff = torch.where(
-            (gains > C.Q28_ONE) & (peak > 0.0) & (max_g < gains),
-            max_g.clamp(min=C.Q28_ONE), gains)
-        del peak, max_g, gains
-        bl = q28_mul(out_l, g_eff)
-        br = q28_mul(out_r, g_eff)
-        del out_l, out_r, g_eff
+                # limiter (leveller.c:369-379): float peak, Q28 gain cap
+                peak = torch.maximum((out_l.to(_F32) * _INV_Q28).abs(),
+                                     (out_r.to(_F32) * _INV_Q28).abs())
+                max_g = f32_to_i32(fmath.det_div(
+                    float(np.float32(C.LEVELLER_LIMITER_CEIL)), peak)
+                    * float(C.Q28_ONE))
+                g_eff = torch.where(
+                    (gains > C.Q28_ONE) & (peak > 0.0) & (max_g < gains),
+                    max_g.clamp(min=C.Q28_ONE), gains)
+                del peak, max_g, gains
+                bl = q28_mul(out_l, g_eff)
+                br = q28_mul(out_r, g_eff)
+                del out_l, out_r, g_eff
 
-    # ---- PASS 3: master peaks, then the crossfeed kernel ----
-    peak_ml = bl.abs().amax(dim=0)
-    peak_mr = br.abs().amax(dim=0)
-    if static.crossfeed_on:
-        bl, br, s4 = xf_q28(bl.contiguous(), br.contiguous(), p.xf,
-                            torch.cat([st.xf_lp, st.xf_ap]))
-        st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
+        with span("dspi.outputs"):
+            # ---- PASS 3: master peaks, then the crossfeed kernel ----
+            peak_ml = bl.abs().amax(dim=0)
+            peak_mr = br.abs().amax(dim=0)
+            if static.crossfeed_on:
+                bl, br, s4 = xf_q28(bl.contiguous(), br.contiguous(), p.xf,
+                                    torch.cat([st.xf_lp, st.xf_ap]))
+                st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
 
-    # ---- PASS 4: matrix (usb_audio.c:1075-1100).  q15_mul(x, 0) == 0,
-    # so the firmware's branches on zero gains all come to this sum ----
-    bufs = []
-    for o in range(nout):
-        if not static.output_enabled[o]:
-            bufs.append(torch.zeros_like(bl))
-            continue
-        bufs.append(q15_mul(bl, p.matrix_gain[0, o])
-                    + q15_mul(br, p.matrix_gain[1, o]))
-    del bl, br
+            # ---- PASS 4: matrix (usb_audio.c:1075-1100).
+            # q15_mul(x, 0) == 0, so the firmware's branches on zero gains
+            # all come to this sum ----
+            bufs = []
+            for o in range(nout):
+                if not static.output_enabled[o]:
+                    bufs.append(torch.zeros_like(bl))
+                    continue
+                bufs.append(q15_mul(bl, p.matrix_gain[0, o])
+                            + q15_mul(br, p.matrix_gain[1, o]))
+            del bl, br
 
-    # ---- PASS 5: per-output EQ ----
-    if out_bands:
-        st, bufs = _q28_outeq(static, p, st, bufs, out_bands, sched)
+            # ---- PASS 5: per-output EQ ----
+            if out_bands:
+                st, bufs = _q28_outeq(static, p, st, bufs, out_bands, sched)
 
-    # output gains (usb_audio.c:1203-1212): float multiply, then Q15
-    # apply per packet (a zero gain needs no branch: q15_mul(x, 0) == 0)
-    for o in range(nout):
-        if not static.output_enabled[o]:
-            continue
-        if static.output_mute[o]:
-            bufs[o] = torch.zeros_like(bufs[o])
-            continue
-        gain = f32_to_i32(p.out_gain[o] * vol_mul_master.to(_F32))
-        if static.schedule:                   # [Ttot, 1|B] along the packets
-            bufs[o] = q15_mul(bufs[o], _per_packet(gain, sched, Ttot))
-        else:                                 # [Npkt, 1, 1|B]
-            bufs[o] = q15_mul(bufs[o].reshape(Npkt, -1, B),
-                              gain[:, None, :]).reshape(Ttot, B)
+        with span("dspi.tail"):
+            # output gains (usb_audio.c:1203-1212): float multiply, then
+            # Q15 apply per packet (a zero gain needs no branch:
+            # q15_mul(x, 0) == 0)
+            for o in range(nout):
+                if not static.output_enabled[o]:
+                    continue
+                if static.output_mute[o]:
+                    bufs[o] = torch.zeros_like(bufs[o])
+                    continue
+                gain = f32_to_i32(p.out_gain[o] * vol_mul_master.to(_F32))
+                if static.schedule:           # [Ttot, 1|B] along the packets
+                    bufs[o] = q15_mul(bufs[o], _per_packet(gain, sched, Ttot))
+                else:                         # [Npkt, 1, 1|B]
+                    bufs[o] = q15_mul(bufs[o].reshape(Npkt, -1, B),
+                                      gain[:, None, :]).reshape(Ttot, B)
 
-    # delay lines (usb_audio.c:1213-1227)
-    if static.delayed_outputs:
-        D = static.delay_ring
-        rows = []
-        for k, o in enumerate(static.delayed_outputs):
-            bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
-                                           p.delay_samples[k], Ttot, D)
-            rows.append(ring_k)
-        st = st._replace(delay=torch.stack(rows))
+            # delay lines (usb_audio.c:1213-1227)
+            if static.delayed_outputs:
+                D = static.delay_ring
+                rows = []
+                for k, o in enumerate(static.delayed_outputs):
+                    bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
+                                                   p.delay_samples[k], Ttot, D)
+                    rows.append(ring_k)
+                st = st._replace(delay=torch.stack(rows))
 
-    # peaks / clip flags (Q28: u16 = peak >> 13, usb_audio.c:1239)
-    peaks = [peak_ml, peak_mr]
-    for o in range(ns2):
-        peaks.append(bufs[o].abs().amax(dim=0))
-    if static.output_enabled[nout - 1]:
-        peaks.append(bufs[nout - 1].abs().amax(dim=0))
-    else:
-        peaks.append(torch.zeros_like(peak_ml))
-    peaks = torch.stack(peaks)
-    clip = st.clip_flags
-    for chi in range(peaks.shape[0]):
-        ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
-        clip = clip | ((peaks[chi] > C.CLIP_THRESH_Q28).to(_I32) << ch_bit)
-    st = st._replace(clip_flags=clip)
+            # peaks / clip flags (Q28: u16 = peak >> 13, usb_audio.c:1239)
+            peaks = [peak_ml, peak_mr]
+            for o in range(ns2):
+                peaks.append(bufs[o].abs().amax(dim=0))
+            if static.output_enabled[nout - 1]:
+                peaks.append(bufs[nout - 1].abs().amax(dim=0))
+            else:
+                peaks.append(torch.zeros_like(peak_ml))
+            peaks = torch.stack(peaks)
+            clip = st.clip_flags
+            for chi in range(peaks.shape[0]):
+                ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
+                clip = clip | ((peaks[chi] > C.CLIP_THRESH_Q28).to(_I32)
+                               << ch_bit)
+            st = st._replace(clip_flags=clip)
 
-    outputs = {"peaks": (peaks >> 13) & 0xFFFF}
-    # S/PDIF conversion (usb_audio.c:1244-1257)
-    st = _s24_wire_pdm(static, st, outputs, bufs, q28_to_s24, bufs[nout - 1],
-                       sched, Npkt, Ttot, groups, wire_lanes)
-    return st, outputs
+        with span("dspi.wire"):
+            outputs = {"peaks": (peaks >> 13) & 0xFFFF}
+            # S/PDIF conversion (usb_audio.c:1244-1257)
+            st = _s24_wire_pdm(static, st, outputs, bufs, q28_to_s24,
+                               bufs[nout - 1], sched, Npkt, Ttot, groups,
+                               wire_lanes)
+        return st, outputs

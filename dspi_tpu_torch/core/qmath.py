@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.telemetry import span
+
 _I32_MAX = (1 << 31) - 1
 
 
@@ -46,16 +48,17 @@ def q15_mul(sample: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     """Firmware ``fast_mul_q15``: the sum is assembled mod 2^32 and read
     back as int32; the low partial product is unsigned, so it runs in
     int64 and is shifted there."""
-    sh = sample >> 16
-    sl = sample & 0xFFFF
-    gh = gain >> 16
-    gl = gain & 0xFFFF
-    hh = sh * gh
-    mid = sh * gl + sl * gh
-    ll = sl.to(torch.int64) * gl.to(torch.int64)
-    total = ((hh.to(torch.int64) << 17) + (mid.to(torch.int64) << 1)
-             + (ll >> 15))
-    return wrap32(total)
+    with span("dspi.q15_mul"):
+        sh = sample >> 16
+        sl = sample & 0xFFFF
+        gh = gain >> 16
+        gl = gain & 0xFFFF
+        hh = sh * gh
+        mid = sh * gl + sl * gh
+        ll = sl.to(torch.int64) * gl.to(torch.int64)
+        total = ((hh.to(torch.int64) << 17) + (mid.to(torch.int64) << 1)
+                 + (ll >> 15))
+        return wrap32(total)
 
 
 def clip_s24(x: torch.Tensor) -> torch.Tensor:

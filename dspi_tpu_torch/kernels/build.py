@@ -118,10 +118,14 @@ def load(name: str, src_dir: Path = SRC_DIR, defines=()) -> ctypes.CDLL:
     key = (name, Path(src_dir), tuple(defines))
     lib = _LIBS.get(key)
     if lib is None:
-        path = lib_path(name, src_dir, defines)
-        if not path.exists():
-            build_all((), (), [(name, src_dir, defines)])
-        lib = ctypes.CDLL(str(path))
+        # imported here: this module imports nothing of torch
+        from ..runtime.telemetry import span
+
+        with span("dspi.kernel_load"):
+            path = lib_path(name, src_dir, defines)
+            if not path.exists():
+                build_all((), (), [(name, src_dir, defines)])
+            lib = ctypes.CDLL(str(path))
         _LIBS[key] = lib
     return lib
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..chain.pack import _NDIM, ChainState
+from .telemetry import span
 
 # outputs that hold uint32 words or uint32 folds (int32 bit patterns or
 # int64 folds in the port; uint32 in the JAX package)
@@ -567,18 +568,19 @@ def ack_fold(out: dict) -> torch.Tensor:
     ``jax.tree.leaves`` over a dict).  A float32 tensor on the outputs'
     device; float outputs sum in float32, in torch's order."""
     total = None
-    for k in sorted(out):
-        v = out[k]
-        if v.is_floating_point():
-            f = v.sum(dtype=torch.float32)
-        else:
-            s = v.sum(dtype=torch.int64)
-            if k in _UNSIGNED or k.startswith("wire"):
-                s = s & _M32
+    with span("dspi.ack_fold"):
+        for k in sorted(out):
+            v = out[k]
+            if v.is_floating_point():
+                f = v.sum(dtype=torch.float32)
             else:
-                s = ((s + 0x80000000) & _M32) - 0x80000000
-            f = s.to(torch.float64).to(torch.float32)   # one rounding
-        total = f if total is None else total + f
+                s = v.sum(dtype=torch.int64)
+                if k in _UNSIGNED or k.startswith("wire"):
+                    s = s & _M32
+                else:
+                    s = ((s + 0x80000000) & _M32) - 0x80000000
+                f = s.to(torch.float64).to(torch.float32)   # one rounding
+            total = f if total is None else total + f
     return total
 
 

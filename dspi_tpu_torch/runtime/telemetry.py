@@ -8,14 +8,46 @@ pdm_generator.c:399-410): an exponential moving average (1/8 new, 7/8 old,
 Q8) of busy/total time per packet.  Here the equivalent "device load" is
 wall-clock segment time over audio time — i.e. 1/RTF — smoothed with the
 same EMA shape and folded to the same Q8 wire value the host app expects.
+
+``span(name)`` names a phase of a segment for ``torch.profiler``: the
+chain's spans (``dspi.segment`` and its phases, ``dspi.q15_mul``, the
+multi-tenant bucket gathers, the ack fold, kernel builds) appear in a
+profile exactly when one records, and cost one flag check otherwise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+
+SPAN_PREFIX = "dspi."
+_NOOP = contextlib.nullcontext()
+
+
+def _open(name: str):
+    """A host event named ``name`` on the profiler's clock, nested under
+    the op or span that encloses it: ``torch._C._profiler
+    ._RecordFunctionFast``, a private class of torch (present in torch
+    2.11 and 2.13).  Its scope is a function's, not a user annotation's
+    as ``torch.profiler.record_function``'s is, so the profiler adds no
+    device-side twin: device operations stay what the device ran, and
+    each still links to its launch through its correlation id.  Looked up
+    only while a profiler records, so a torch without it fails a profiled
+    run and nothing else."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def span(name: str):
+    """A context that marks ``name`` on the profiler's clock while a
+    ``torch.profiler`` records, and a shared no-op one otherwise.  It
+    launches no device work."""
+    if not torch.autograd._profiler_enabled():
+        return _NOOP
+    return _open(name)
 
 
 @dataclass

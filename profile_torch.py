@@ -20,14 +20,16 @@ segment with torch.profiler (CPU and CUDA activity).
 Prints the card, the segment's wall time, the number of device kernels and
 their summed time, the device's idle share (1 - kernel time / wall), and
 the ops with the most device time; writes the full table to
-chiprun_out/profile_<path>.txt.  Then times each stage of one more
-segment (synchronized before and after each call of a stage, so stages
-cannot overlap and the sum is slower than an unwrapped segment).
-rp2350_serve traces one batch of the serving entry point instead
-(dspi_tpu_torch.serve's serve_chained --framed-dev: the wire engine under
-a ChainedRunner, 8 chained segments of 32 packets deframed on the card
-from uploaded s16 payload words, one readback): its upload, kernels and
-idle share; it times no stages.  With
+chiprun_out/profile_<path>.txt.  Then reads the same profile through the
+benchmark's reduction of the program's spans (benchmark/spans.py): for
+each span (dspi.segment and its phases, dspi.q15_mul, the bucket gathers,
+the ack fold; "host" outside them) its host self time and the part of it
+spent waiting for the device, the device time, count and uploads of the
+operations it launched, and the idle time in gaps that began in it.  rp2350_serve traces one batch of the serving entry point
+instead (dspi_tpu_torch.serve's serve_chained --framed-dev: the wire
+engine under a ChainedRunner, 8 chained segments of 32 packets deframed
+on the card from uploaded s16 payload words, one readback): its upload,
+kernels, idle share and spans.  With
 wire words (rp2350_wire), it then traces the wire stage alone on one
 segment's arguments: its kernels and their device time, and the bytes its
 torch ops move, in passes of a channel pair's [2, T, B] int32 plane.
@@ -82,63 +84,20 @@ _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
           ("xf_f32", "xf_kernel", "xf_f32", "stg", 2))
 
 
-def _stages(path):
-    from dspi_tpu_torch.chain import mxu, pipeline
-    from dspi_tpu_torch.core import fmath
+def span_table(prof, segments: int) -> None:
+    """Print the profile's time by program span, through the benchmark's
+    reduction (the step must lie in a ``bench.window`` span)."""
+    from benchmark import spans
 
-    if path.startswith("rp2350_scan"):
-        return [(pipeline, "f32_cascades", "float cascade kernel (2 calls)"),
-                (pipeline, "xf_f32", "float crossfeed kernel"),
-                (fmath, "smooth_det", "leveller packet loop (smooth_det)"),
-                (fmath, "det_div", "limiter reciprocal (det_div)"),
-                (pipeline, "pdm_segment", "PDM (mode prologue + kernel)")]
-    if path.startswith("rp2350"):
-        return [(mxu, "chain_a", "loudness + master EQ (block products)"),
-                (mxu, "env_packet_ends", "leveller envelope"),
-                (mxu, "chain_b", "crossfeed + matrix + output EQ"),
-                (fmath, "smooth_det", "leveller packet loop (smooth_det)"),
-                (fmath, "det_div", "limiter reciprocal (det_div)"),
-                (pipeline, "_wire_stage", "wire words (encoders)"),
-                (pipeline, "pdm_segment", "PDM (mode prologue + kernel)")]
-    return [(pipeline, "q28_cascades", "Q28 cascade kernel (2 calls)"),
-            (pipeline, "xf_q28", "crossfeed kernel"),
-            (pipeline, "pdm_segment", "PDM (mode prologue + kernel)"),
-            (fmath, "smooth_det", "leveller packet loop (smooth_det)"),
-            (fmath, "det_div", "limiter reciprocal (det_div)"),
-            (pipeline, "q15_mul", "q15_mul (matrix, gains)"),
-            (pipeline, "q28_mul", "q28_mul (preamp, limiter)")]
-
-
-def stage_times(eng, x, path) -> dict:
-    """Wall milliseconds per stage of one segment, summed over the stage's
-    calls."""
-    times = {}
-    saved = []
-    for mod, name, label in _stages(path):
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
-
-        def timed(*a, _fn=fn, _label=label, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = _fn(*a, **k)
-            torch.cuda.synchronize()
-            times[_label] = times.get(_label, 0.0) + 1e3 * (
-                time.perf_counter() - t)
-            return r
-        setattr(mod, name, timed)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.process(x)
-        torch.cuda.synchronize()
-        total = 1e3 * (time.perf_counter() - t0)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    times["rest"] = total - sum(times.values())
-    times["segment (synchronized stages)"] = total
-    return times
+    tr = spans.from_profiler(prof, segments)
+    print(f"by span over {tr.window_s * 1e3:.3f} ms ({segments} segments, "
+          f"{tr.launches()} device operations): host self ms, of it "
+          f"waiting ms, device ms, launches, uploads, idle ms")
+    for name, host, wait, dev, n, up, idle in spans.span_table(tr):
+        print(f"  {name:18s} {host:10.3f} {wait:10.3f} {dev:10.3f} {n:7d} "
+              f"{up:5d} {idle:10.3f}")
+    for k, read in spans.READINGS.items():
+        print(f"  {k}: {read(tr)}")
 
 
 def loop_ops(out: Path) -> None:
@@ -308,7 +267,9 @@ def main() -> None:
         raise SystemExit(f"unknown path {path}: one of {', '.join(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from benchmark.trace import WINDOW
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -317,9 +278,11 @@ def main() -> None:
     if path == "rp2350_serve":
         run, audio_s = _serve_batch(dev)
         warm = (run, run)
+        segments = SERVE_DEPTH
         what = (f"batch of {SERVE_DEPTH} x {SERVE_PACKETS} packets "
                 f"({audio_s * 1e3:.0f} ms of audio a stream)")
     else:
+        segments = 1
         eng, x = _path(path, dev)
         warm = [functools.partial(eng.process, x ^ i) for i in range(2)]
         run = functools.partial(eng.process, x ^ 2)
@@ -329,10 +292,11 @@ def main() -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation]
@@ -352,11 +316,10 @@ def main() -> None:
           f"{sum(e.count for e in copies)}, "
           f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
+    span_table(prof, segments)
     if path == "rp2350_serve":
         loop_ops(out)
         return
-    for label, ms in stage_times(eng, x ^ 3, path).items():
-        print(f"stage {ms:10.3f} ms  {label}")
     if eng.static.wire:
         wire_trace(eng, x ^ 4)
     loop_ops(out)

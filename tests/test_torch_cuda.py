@@ -431,3 +431,30 @@ def test_chained_runner_on_card_equals_cpu():
         assert (a is None) == (b is None), f
         if a is not None:
             assert torch.equal(a.cpu(), b), f
+
+
+@pytest.mark.cuda
+def test_a_span_has_no_device_side_twin():
+    """A span (``runtime.telemetry.span``) under a profile with CUDA
+    activity is one host event: no ``dspi.*`` device event, so a trace's
+    device operations stay what the card ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA activity has no CPU form")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dspi_tpu_torch.runtime.telemetry import SPAN_PREFIX, span
+
+    x = torch.ones(4096, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with span("dspi.probe"):
+            y = x * 2 + 1
+        torch.cuda.synchronize()
+    evs = prof.events()
+    host = [e for e in evs if e.name == "dspi.probe"
+            and e.device_type != DeviceType.CUDA]
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    assert len(host) == 1
+    assert dev and not [e for e in dev if e.name.startswith(SPAN_PREFIX)]
+    assert torch.equal(y, torch.full_like(x, 3.0))
