@@ -43,7 +43,11 @@ Phases (each prints one line; any failure exits non-zero):
      packet-end flush firing, and the master call's at full length (6144
      samples); the float crossfeed over three chained segments, the last
      with per-lane coefficients.  A mismatch prints the largest gap and
-     fails
+     fails.  Then the leveller's packet recurrence (lev.cu, both chains)
+     vs its plain version on the CPU, bit for bit, at [128, 16384] and
+     [178, 17408] with uniform and per-lane alphas and edge inputs, and
+     at [128, 16384] timed beside its bound and the plain version's time
+     on the card
   6. the float main path at full width: Engine on the headline RP2350
      chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
      samples with state carried and a fresh input each (x ^ i); launch
@@ -57,7 +61,7 @@ Phases (each prints one line; any failure exits non-zero):
   8. the Q28 main path at full width: Engine on the RP2040 headline chain
      (full_chain_config, 7 channels), the same geometry, 16- and 24-bit
      input, 4 chained segments each; fails unless a segment launches the
-     cascade kernel twice, the crossfeed kernel once and the PDM kernel
+     cascade kernel twice, the crossfeed, leveller and PDM kernels
      once.  Then the cascade, crossfeed and PDM kernels alone, on the
      very arguments the path gave them, timed with CUDA events, beside
      their bounds (the crossfeed's from XF_OPS, the PDM kernel's from
@@ -80,8 +84,9 @@ Phases (each prints one line; any failure exits non-zero):
      streams, 2 segments with an update_group between; a 44.1 kHz Engine
      at 8 streams, 2 segments; every output word and every state word equal
  12. the float chain's serving paths at full width, each as phase 6
-     (warm-up, 4 chained segments, exactly 1 PDM launch a segment, the PDM
-     call of one more segment timed alone beside its bound): the float
+     (warm-up, 4 chained segments, exactly 1 leveller and 1 PDM launch a
+     segment, the PDM call of one more segment timed alone beside its
+     bound): the float
      chain with the device wire words (examples/serve.py's engine:
      wire=True, emit "reduced"), with the wire stage's synchronized time
      beside the segment's and a fused encoder's byte bound; the float
@@ -191,6 +196,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -220,6 +226,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # output instances), one thread a stream, a sample an iteration; nvcc with
 # build.NVCC_FLAGS for sm_90a, read with compare_kernels.py.  The new
 # builds' own counts, a stream-sample, are printed beside them.
+# every main path runs the leveller: its packet recurrence (lev.cu) and
+# the PDM modulator launch once a segment each
+LEV_PDM = {"lev_smooth": 1, "pdm": 1}
 PIPE_OPS_PER_SM_CLOCK = 64
 ISSUE_PER_SM_CLOCK = 128
 # multiplies of two run-time values each function needs: fast_mul_q28 is
@@ -228,6 +237,8 @@ ISSUE_PER_SM_CLOCK = 128
 # modulator's multiplies on the enabled, unfaded path are all by
 # constants, which shifts and adds can do, so it needs none.
 MUL_PER_BAND, MUL_PER_ENV, MUL_XF, MUL_PDM = 15, 9, 24, 0
+# the leveller's recurrence: two 24 x 24-bit mantissa products a packet
+MUL_LEV = 2
 PDM_OPS = {"alu_only": 851.0, "arith": 1744.0}
 XF_OPS = {"alu_only": 25.5, "arith": 74.5}
 EQ_LANE_OPS = {(10, True, True): {"alu_only": 109.0, "arith": 361.0},
@@ -531,7 +542,7 @@ def phase_main(dev, card: str) -> dict:
     x = torch.randint(-16000, 16000, (PACKETS, 2, BLOCK, STREAMS),
                       generator=gen, dtype=torch.int32, device=dev)
     result = drive_path(dev, card, "main path", eng, x,
-                        STREAMS * PACKETS * BLOCK / RATE, {"pdm": 1}, 11,
+                        STREAMS * PACKETS * BLOCK / RATE, LEV_PDM, 11,
                         peak_max=32767)
     result["calls"] = record_calls(eng, x, "main path", kinds=("pdm",))
     return result
@@ -1084,6 +1095,71 @@ def phase_xf_f32(dev) -> dict:
             "kernel_ms_at_plain_shape": kern_ms}
 
 
+def per_segment(n: int) -> dict:
+    """The launches of ``n`` segments of a path that launches only the
+    leveller and PDM kernels (the float block lowering, serving)."""
+    return {k: n * v for k, v in LEV_PDM.items()}
+
+
+def phase_lev(dev) -> dict:
+    """The leveller's packet recurrence (lev.cu) vs its plain version on
+    the CPU, bit for bit, at the cells' [128, 16384] and the grouped 44.1
+    kHz [178, 17408], uniform [Npkt, 1] and per-lane [Npkt, B] alphas, on
+    tests/lev_cases.py's inputs (edge values among them); then at [128,
+    16384] with uniform alphas (the render cells' call) the kernel timed
+    with CUDA events beside its bound, and the plain version on the card."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from lev_cases import case
+
+    from dspi_tpu_torch.kernels import LAUNCHES
+    from dspi_tpu_torch.kernels.lev_cuda import lev_smooth, lev_smooth_plain
+
+    for npkt, B, lane, rate in ((128, STREAMS, False, RATE),
+                                (128, STREAMS, True, RATE),
+                                (178, 17408, False, 44100.0),
+                                (178, 17408, True, 44100.0)):
+        args = [torch.from_numpy(v) for v in case(npkt, B, lane, rate,
+                                                   seed=npkt * B)]
+        want = lev_smooth_plain(*args)
+        n0 = LAUNCHES["lev_smooth"]
+        got = lev_smooth(*[a.to(dev) for a in args])
+        torch.cuda.synchronize()
+        if LAUNCHES["lev_smooth"] != n0 + 1:
+            fail("lev_smooth did not count one launch")
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            fail(f"leveller kernel != plain version at [{npkt}, {B}] "
+                 f"(per lane {lane}): largest gap "
+                 f"{max_gap(got.cpu(), want):.3e}")
+    npkt, B = PACKETS, STREAMS
+    args = [torch.from_numpy(v).to(dev) for v in case(npkt, B, False, RATE,
+                                                       seed=5)]
+    kern_ms = cuda_ms(lambda: lev_smooth(*args), 50)
+    plain_ms = cuda_ms(lambda: lev_smooth_plain(*args), 3)
+    from dspi_tpu_torch.kernels import build
+
+    c = build.per_sample(build.loop_counts(_sass("lev"), "lev_smooth"),
+                         "stg", 1)
+    ops = {"alu_only": c["alu_only"], "arith": c["arith"]}
+    nbytes = 4 * (2 * npkt * B + 2 * args[1].numel() + B)
+    bound_ms, by, text = bound(work(ops, MUL_LEV, npkt * B), nbytes)
+    print(f"lev_smooth: kernel == plain bit for bit at [128, {STREAMS}] and "
+          f"[178, 17408], uniform and per-lane alphas; at [{npkt}, {B}]: "
+          f"kernel {kern_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; {text}; "
+          f"a lane-packet {c['arith']:.1f} instructions, "
+          f"{c['alu_only']:.1f} ALU-only), plain version on the card "
+          f"{plain_ms:.1f} ms", flush=True)
+    return {"name": "lev_smooth", "route": "cuda",
+            "source": "dspi_tpu_torch/kernels/csrc/lev.cu",
+            "replaces": "dspi_tpu/chain/pipeline.py:518-527 and :992-999 "
+                        "(lev_step, a lax.scan, no TPU kernel)",
+            "max_abs_err": 0.0, "plain_ms": plain_ms, "library_ms": None,
+            "equal_to_plain": True, "plain_shape": [npkt, B],
+            "kernel_ms_at_plain_shape": kern_ms, "ms": kern_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "ops_per_lane_packet": ops}
+
+
 def eq_sample_ops(nb: int, loud: bool, env: bool, lane: bool) -> dict:
     """This build's SASS counts a stream-sample of the cascade kernel's
     instance <nb, loud, env>: cascade_kernel, or lane_kernel per lane."""
@@ -1417,7 +1493,7 @@ def phase_q28_main(dev, card: str, bit_depth: int, record: bool) -> dict:
     x = _rand_i32(gen, -lim, lim, (PACKETS, 2, BLOCK, STREAMS), dev)
     result = drive_path(dev, card, f"Q28 main path ({bit_depth}-bit)", eng, x,
                         STREAMS * PACKETS * BLOCK / RATE,
-                        {"eq_q28": 2, "xf_q28": 1, "pdm": 1}, 7)
+                        {"eq_q28": 2, "xf_q28": 1, **LEV_PDM}, 7)
     if record:
         result["calls"] = record_calls(eng, x, "Q28 main path")
     return result
@@ -1451,7 +1527,7 @@ def phase_hetero(dev, card: str) -> dict:
     result = drive_path(dev, card, "Q28 hetero path", srv, x,
                         STREAMS * PACKETS * BLOCK / RATE,
                         {"eq_q28": 2, "eq_q28_lane_cf": 2, "xf_q28": 1,
-                         "pdm": 1}, 7)
+                         **LEV_PDM}, 7)
     result.update(padding_waste=srv.padding_waste, lanes=lanes,
                   calls=record_calls(srv, x, "Q28 hetero path"))
     if not all(c["lane_cf"] for c in result["calls"] if c["kind"] == "eq"):
@@ -1479,7 +1555,7 @@ def phase_44k1(dev, card: str) -> dict:
     result = drive_path(dev, card, "Q28 44.1 kHz path", eng, x,
                         STREAMS * ttot / 44100.0,
                         {"eq_q28": 2, "eq_q28_sched": 2, "xf_q28": 1,
-                         "pdm": 1}, 7)
+                         **LEV_PDM}, 7)
     result["calls"] = record_calls(eng, x, "Q28 44.1 kHz path")
     if not all(c["sched"] for c in result["calls"] if c["kind"] == "eq"):
         fail("Q28 44.1 kHz path: a cascade call ran without the schedule")
@@ -1537,7 +1613,7 @@ def phase_float_wire(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(47)
     x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
     result = drive_path(dev, card, "float wire path", eng, x,
-                        STREAMS * PACKETS * BLOCK / RATE, {"pdm": 1}, 11,
+                        STREAMS * PACKETS * BLOCK / RATE, LEV_PDM, 11,
                         peak_max=32767,
                         keys=("peaks", "s24_sum", "pdm_sum", "wire_sum"))
     result["calls"] = record_calls(eng, x, "float wire path", kinds=("pdm",))
@@ -1571,7 +1647,7 @@ def phase_float_44k1(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(53)
     x = _rand_i32(gen, -16000, 16000, (2, ttot, STREAMS), dev)
     result = drive_path(dev, card, "float 44.1 kHz path", eng, x,
-                        STREAMS * ttot / 44100.0, {"pdm": 1}, 11,
+                        STREAMS * ttot / 44100.0, LEV_PDM, 11,
                         peak_max=32767)
     result.update(lti_block=lay.tmax,
                   calls=record_calls(eng, x, "float 44.1 kHz path",
@@ -1602,7 +1678,7 @@ def phase_float_hetero(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(59)
     x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
     result = drive_path(dev, card, "float hetero path", srv, x,
-                        STREAMS * PACKETS * BLOCK / RATE, {"pdm": 1}, 11,
+                        STREAMS * PACKETS * BLOCK / RATE, LEV_PDM, 11,
                         peak_max=32767)
     result.update(padding_waste=srv.padding_waste, lanes=lanes,
                   calls=record_calls(srv, x, "float hetero path",
@@ -1629,7 +1705,7 @@ def phase_float_scan(dev, card: str) -> dict:
     x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
     result = drive_path(dev, card, "float scan path", eng, x,
                         STREAMS * PACKETS * BLOCK / RATE,
-                        {"eq_f32": 2, "xf_f32": 1, "pdm": 1}, 11,
+                        {"eq_f32": 2, "xf_f32": 1, **LEV_PDM}, 11,
                         peak_max=32767)
     result["calls"] = record_calls(eng, x, "float scan path",
                                    kinds=("eqf", "xff", "eqf", "pdm"))
@@ -1666,7 +1742,7 @@ def phase_float_scan_hetero(dev, card: str) -> dict:
     result = drive_path(dev, card, "float scan hetero path", srv, x,
                         STREAMS * PACKETS * BLOCK / RATE,
                         {"eq_f32": 2, "eq_f32_lane": 2, "xf_f32": 1,
-                         "pdm": 1}, 11, peak_max=32767)
+                         **LEV_PDM}, 11, peak_max=32767)
     result.update(padding_waste=srv.padding_waste, lanes=lanes,
                   calls=record_calls(srv, x, "float scan hetero path",
                                      kinds=("eqf", "xff", "eqf", "pdm")))
@@ -1893,11 +1969,12 @@ def phase_serving(card: str) -> dict:
         total_s = time.perf_counter() - t0
         launches = {k: n for k, n in LAUNCHES.items() if n}
         depth = r["depth"]
-        if launches != {"pdm": depth * SERVE_BATCHES}:
+        if launches != per_segment(depth * SERVE_BATCHES):
             fail(f"{label} launched {launches} in {SERVE_BATCHES} batches "
-                 f"of {depth} segments, not one PDM launch a segment")
+                 f"of {depth} segments, not one leveller and one PDM launch "
+                 f"a segment")
         for b in r["batches"]:
-            if b["launches"] != {"pdm": depth}:
+            if b["launches"] != per_segment(depth):
                 fail(f"{label} batch {b['batch']} launched {b['launches']}")
         st = r["stats"]
         want = min(st.n_slots, 4) * (r["gaps_over_deadline"]
@@ -2375,8 +2452,8 @@ def phase_bench(dev, card: str, main_path: dict) -> dict:
     full width: the headline float chain, 16384 streams x 128 packets,
     BENCH_DEPTH chained segments a run (x ^ i each), best of BENCH_ITERS
     runs from the restored state, each run's fold equal to the first's;
-    launch counts set to 0 just before and read just after (one PDM
-    launch a segment: the warm-up run, the timed runs and the two latency
+    launch counts set to 0 just before and read just after (one leveller
+    and one PDM launch a segment: the warm-up run, the timed runs and the two latency
     segments).  Printed beside this run's float main path (phase 6)."""
     from dspi_tpu_torch import Platform, bench
     from dspi_tpu_torch.configs import full_chain_config
@@ -2393,8 +2470,9 @@ def phase_bench(dev, card: str, main_path: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = _launches()
     segments = BENCH_DEPTH * (1 + max(BENCH_ITERS, 2)) + 2
-    if launches != {"pdm": segments}:
-        fail(f"bench headline launched {launches}, not {segments} PDM")
+    if launches != per_segment(segments):
+        fail(f"bench headline launched {launches}, not {segments} "
+             f"leveller and {segments} PDM")
     audio_s = STREAMS * PACKETS * BLOCK / RATE
     seg_ms = 1e3 * audio_s / rtf
     gap = seg_ms / main_path["mean_ms"] - 1.0
@@ -2419,7 +2497,7 @@ def phase_full96(dev, card: str) -> dict:
     kHz, 16384 streams x 64 packets x 96 samples (the 48 kHz segment's
     samples), 4 chained segments a run, with the card's peak memory (the
     port applies the 96 kHz blocks without the JAX package's x-chunking);
-    one PDM launch a segment."""
+    one leveller and one PDM launch a segment."""
     from dspi_tpu_torch import bench_stages
 
     S = bench_stages.Settings(B=STREAMS, NPKT=PACKETS // 2, ITERS=2, DEPTH=4,
@@ -2429,8 +2507,9 @@ def phase_full96(dev, card: str) -> dict:
     r = bench_stages.run_stage("full96", S)["full_96k"]
     launches = _launches()
     segments = S.DEPTH * (1 + max(S.ITERS, 2)) + 2
-    if launches != {"pdm": segments}:
-        fail(f"full96 launched {launches}, not {segments} PDM")
+    if launches != per_segment(segments):
+        fail(f"full96 launched {launches}, not {segments} leveller and "
+             f"{segments} PDM")
     print(f"full96 (bench_stages): {S.B} streams x {S.NPKT}x96 samples, RTF "
           f"{r['rtf']:.1f}x, one synchronous segment "
           f"{1e3 * r['wall']:.3f} ms, peak memory {r['peak_gb']:.2f} GB; "
@@ -2706,6 +2785,7 @@ def main() -> None:
     xf_row = phase_xf(dev)
     eqf_times = phase_eq_f32(dev)
     xff_row = phase_xf_f32(dev)
+    lev_row = phase_lev(dev)
     main_path = phase_main(dev, card)
     phase_card_vs_cpu(dev)
     q28 = phase_q28_main(dev, card, 16, record=True)
@@ -2802,7 +2882,8 @@ def main() -> None:
     for row, key in ((pdm_row, "pdm"), (eq_row, "eq_q28_scalar"),
                      (lane_row, "eq_q28_lane_cf"),
                      (sched_row, "eq_q28_sched"), (xf_row, "xf_q28"),
-                     (eqf_row, "eq_f32"), (xff_row, "xf_f32")):
+                     (eqf_row, "eq_f32"), (xff_row, "xf_f32"),
+                     (lev_row, "lev_smooth")):
         row["launches_by_path"] = {p: n.get(key, 0) for p, n in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     # the scalar mode's time and bound per segment: its two calls
@@ -2841,7 +2922,8 @@ def main() -> None:
         "stage_settings": STAGE_SMALL, "graft": graft,
         "firmware_oracles": oracle}, "fuzz": fuzz}), flush=True)
     print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
-                                  xf_row, eqf_row, xff_row]}), flush=True)
+                                  xf_row, eqf_row, xff_row, lev_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

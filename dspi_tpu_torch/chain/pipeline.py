@@ -32,9 +32,10 @@ and the rest as whole-segment integer tensor ops.  It takes per-stream
 parameters (``pack.build_params_multi``: any leaf may carry a trailing
 [B] stream axis) and packet schedules.
 
-In both, the leveller's packet-rate gain smoothing is a Python loop over
-packets, the PDM modulator is the CUDA kernel (kernels/pdm_cuda.py) and,
-with ``static.wire``, the s24 samples become the S/PDIF or I2S wire words
+In both, the leveller's packet-rate gain smoothing is one kernel call
+(kernels/lev_cuda.py, one thread a stream over the packets), the PDM
+modulator is the CUDA kernel (kernels/pdm_cuda.py) and, with
+``static.wire``, the s24 samples become the S/PDIF or I2S wire words
 (kernels/encoders.py) on the device.
 
   PASS 1  unpack + preamp + loudness            usb_audio.c:590-718 / 996-1047
@@ -55,6 +56,7 @@ from ..core.qmath import f32_to_i32, q15_mul, q28_mul, q28_to_s24, wrap32
 from ..kernels import encoders
 from ..kernels.eq_cuda import q28_cascades
 from ..kernels.eq_f32_cuda import f32_cascades
+from ..kernels.lev_cuda import lev_smooth
 from ..kernels.pdm_cuda import pdm_segment
 from ..kernels.xf_cuda import xf_q28
 from ..kernels.xf_f32_cuda import xf_f32
@@ -64,6 +66,7 @@ from .pack import SKIP, TDF2, StaticChain
 _F32 = torch.float32
 _I32 = torch.int32
 _INV20 = float(np.float32(1.0) / np.float32(20.0))
+_TINY = float(np.float32(1e-30))
 
 
 # ----------------------------------------------------------------------------
@@ -177,6 +180,37 @@ def _pattern_len(sched: np.ndarray):
         if n % p == 0 and bool((sched == np.tile(sched[:p], n // p)).all()):
             return p
     return None
+
+
+def _lev_gain_db(p, rms_sq, sched, gdb0):
+    """The leveller's block phase up to its smoothed gain, both chains
+    (leveller.c:147-227 / 274-354): the gain computer over every packet's
+    envelope (``rms_sq`` float32 [Npkt, B]), vectorized over packets, then
+    the block-rate attack/release recurrence from ``gdb0`` [B] as one
+    ``lev_smooth`` call, with the alpha^count correction
+    (leveller.c:223-227) hoisted; the count is each packet's length
+    ([Npkt, 1|B]).  Returns the smoothed gain (dB) after each packet,
+    float32 [Npkt, B]."""
+    a_att, a_rel = p.lev[1], p.lev[2]
+    thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
+    max_gain, makeup = p.lev[7], p.lev[8]
+    slope, inv_two_knee = p.lev[9], p.lev[10]
+    rms_db = 10.0 * fmath.log10_f32(rms_sq + _TINY)
+    half = knee * 0.5
+    d = thresh + half - rms_db
+    zero = torch.zeros_like(rms_db)
+    gc = torch.where(
+        rms_db > thresh + half, zero,
+        torch.where(rms_db >= thresh - half,
+                    slope * d * d * inv_two_knee,
+                    (thresh - rms_db) * slope))
+    gc = torch.minimum(gc + makeup, max_gain)
+    gc = torch.where(rms_db < gate, zero, gc)                   # [Npkt, B]
+    counts = torch.from_numpy(sched.astype(np.float32))[:, None].to(
+        rms_sq.device)
+    pow_att = fmath.pow_f32(a_att, counts)
+    pow_rel = fmath.pow_f32(a_rel, counts)
+    return lev_smooth(gc, pow_att, pow_rel, gdb0)
 
 
 def _pkts_to_flat(arr, sched, Ttot):
@@ -523,43 +557,11 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
         if static.leveller_on:
             with span("dspi.leveller"):
                 st = st._replace(lev_env=torch.stack([env_l[-1], env_r[-1]]))
-                a_att, a_rel = p.lev[1], p.lev[2]
-                thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
-                max_gain, makeup = p.lev[7], p.lev[8]
-                slope, inv_two_knee = p.lev[9], p.lev[10]
-
-                # gain computer, vectorized over packets
-                rms_sq = torch.maximum(env_l, env_r)
-                rms_db = 10.0 * fmath.log10_f32(rms_sq + 1e-30)
-                half = knee * 0.5
-                d = thresh + half - rms_db
-                zero = torch.zeros_like(rms_db)
-                gc = torch.where(
-                    rms_db > thresh + half, zero,
-                    torch.where(rms_db >= thresh - half,
-                                slope * d * d * inv_two_knee,
-                                (thresh - rms_db) * slope))
-                gc = torch.minimum(gc + makeup, max_gain)
-                gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
-
-                # block-rate attack/release smoothing: a recurrence over
-                # packets, with the alpha^count correction
-                # (leveller.c:223-227) hoisted; the count is each packet's
-                # length ([Npkt, 1|B])
-                counts = torch.from_numpy(
-                    sched.astype(np.float32))[:, None].to(dev)
-                pow_att = fmath.pow_f32(a_att, counts)
-                pow_rel = fmath.pow_f32(a_rel, counts)
-                gdb = st.lev_gain_db
-                gdbs = []
-                for k in range(Npkt):
-                    alpha = torch.where(gc[k] < gdb, pow_att[k], pow_rel[k])
-                    gdb = fmath.smooth_det(alpha, gdb, gc[k])
-                    gdbs.append(gdb)
-                # [Npkt, B]
-                g_cur_p = fmath.exp10_f32(torch.stack(gdbs) * _INV20)
+                gdbs = _lev_gain_db(p, torch.maximum(env_l, env_r), sched,
+                                    st.lev_gain_db)
+                g_cur_p = fmath.exp10_f32(gdbs * _INV20)      # [Npkt, B]
                 g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
-                st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
+                st = st._replace(lev_gain_db=gdbs[-1], lev_gain=g_cur_p[-1],
                                  lev_gain_prev=g_prev_p[-1])
 
                 # gain ramp with the firmware's sequential accumulation, all
@@ -695,7 +697,6 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
 
 _IDENT_Q28 = (C.Q28_ONE, 0, 0, 0, 0)        # an exact pass-through band row
 _INV_Q28 = 2.0 ** -28
-_TINY = float(np.float32(1e-30))
 
 
 def _lane_rows(rows, B):
@@ -883,41 +884,13 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
             with span("dspi.leveller"):
                 st = st._replace(lev_env=env[:, -1].clone())
                 env_f = env.to(_F32) * _INV_Q28              # [2, Npkt, B]
-                a_att, a_rel = p.lev[1], p.lev[2]
-                thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
-                max_gain, makeup = p.lev[7], p.lev[8]
-                slope, inv_two_knee = p.lev[9], p.lev[10]
-                rms_sq = torch.maximum(env_f[0], env_f[1])
-                rms_db = 10.0 * fmath.log10_f32(rms_sq + _TINY)
-                half = knee * 0.5
-                d = thresh + half - rms_db
-                zero = torch.zeros_like(rms_db)
-                gc = torch.where(
-                    rms_db > thresh + half, zero,
-                    torch.where(rms_db >= thresh - half,
-                                slope * d * d * inv_two_knee,
-                                (thresh - rms_db) * slope))
-                gc = torch.minimum(gc + makeup, max_gain)
-                gc = torch.where(rms_db < gate, zero, gc)           # [Npkt, B]
-
-                # block-rate attack/release smoothing with alpha^count per
-                # packet ([Npkt, 1|B]): the loop runs smooth_det only; the
-                # Q28 gains of all packets follow in one pass
-                counts = torch.from_numpy(
-                    sched.astype(np.float32))[:, None].to(dev)
-                pow_att = fmath.pow_f32(a_att, counts)
-                pow_rel = fmath.pow_f32(a_rel, counts)
-                gdb = st.lev_gain_db
-                gdbs = []
-                for k in range(Npkt):
-                    alpha = torch.where(gc[k] < gdb, pow_att[k], pow_rel[k])
-                    gdb = fmath.smooth_det(alpha, gdb, gc[k])
-                    gdbs.append(gdb)
+                gdbs = _lev_gain_db(p, torch.maximum(env_f[0], env_f[1]),
+                                    sched, st.lev_gain_db)
+                # the Q28 gains of all packets in one pass
                 g_cur_p = f32_to_i32(                       # [Npkt, B]
-                    fmath.exp10_f32(torch.stack(gdbs) * _INV20)
-                    * float(C.Q28_ONE))
+                    fmath.exp10_f32(gdbs * _INV20) * float(C.Q28_ONE))
                 g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
-                st = st._replace(lev_gain_db=gdb, lev_gain=g_cur_p[-1],
+                st = st._replace(lev_gain_db=gdbs[-1], lev_gain=g_cur_p[-1],
                                  lev_gain_prev=g_prev_p[-1])
 
                 # interpolated gain

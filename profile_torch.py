@@ -70,7 +70,8 @@ SERVE_DEPTH, SERVE_PACKETS = 8, 32
 # lane_kernel); the crossfeed reads its inputs from shared memory and
 # stores two words a sample.  The float cascade kernel is one library a
 # band-kinds signature: loop_ops counts each one the path loaded, a sample
-# being a step of its skewed loop (one cp.async each)
+# being a step of its skewed loop (one cp.async each).  The leveller's
+# recurrence walks packets, not samples, and stores one word a packet
 _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
           ("eq_q28", "cascade_kernelILi10ELb1ELb1EE",
            "eq master <10,1,1>", "ldg", 1),
@@ -81,7 +82,8 @@ _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
           ("eq_q28", "lane_kernelILi10ELb0ELb0EE",
            "eq output lane_cf <10,0,0>", "ldg", 1),
           ("xf_q28", "xf_kernel", "xf", "stg", 2),
-          ("xf_f32", "xf_kernel", "xf_f32", "stg", 2))
+          ("xf_f32", "xf_kernel", "xf_f32", "stg", 2),
+          ("lev", "lev_smooth", "lev_smooth (a packet)", "stg", 1))
 
 
 def span_table(prof, segments: int) -> None:

@@ -458,3 +458,135 @@ def test_a_span_has_no_device_side_twin():
     assert len(host) == 1
     assert dev and not [e for e in dev if e.name.startswith(SPAN_PREFIX)]
     assert torch.equal(y, torch.full_like(x, 3.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npkt,B,lane,rate", [
+    (128, 16384, False, 48000.0), (128, 16384, True, 48000.0),
+    (178, 17408, False, 44100.0), (178, 17408, True, 44100.0),
+    (9, 65, True, 48000.0), (1, 1, False, 44100.0), (17, 5, False, 48000.0)])
+def test_lev_kernel_equals_plain(npkt, B, lane, rate):
+    """The leveller's packet recurrence on the card against its plain
+    version on the CPU and on the card, bit for bit: the cells' [128,
+    16,384] and the grouped 44.1 kHz [178, 17,408], uniform [Npkt, 1] and
+    per-lane [Npkt, B] alphas, ragged lane counts, the edge inputs of
+    ``lev_cases.case`` (zeros, denormals, huge targets, alphas 0 and 1, a
+    denormal sum); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    from lev_cases import case, denormal_first
+
+    from dspi_tpu_torch.kernels.lev_cuda import lev_smooth, lev_smooth_plain
+
+    args = [torch.from_numpy(v) for v in case(npkt, B, lane, rate,
+                                               seed=npkt + B)]
+    want = lev_smooth_plain(*args)
+    on_card = [a.cuda() for a in args]
+    n0 = LAUNCHES["lev_smooth"]
+    got = lev_smooth(*on_card)
+    torch.cuda.synchronize()
+    assert LAUNCHES["lev_smooth"] == n0 + 1
+    assert got.is_cuda and got.shape == (npkt, B)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  want.numpy().view(np.uint32))
+    plain_card = lev_smooth_plain(*on_card)
+    assert torch.equal(plain_card.cpu().view(torch.int32),
+                       want.view(torch.int32))
+    assert LAUNCHES["lev_smooth"] == n0 + 1
+    if B >= 5:
+        assert denormal_first(got.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "contiguous"])
+def test_lev_kernel_refuses(bad):
+    """A tensor on another device, of another dtype, of a wrong shape or
+    not contiguous raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch.kernels.lev_cuda import lev_smooth
+
+    gc = torch.zeros(8, 64, device="cuda")
+    pa = pr = torch.full((8, 1), 0.5, device="cuda")
+    g0 = torch.zeros(64, device="cuda")
+    if bad == "device":
+        g0 = g0.cpu()
+    elif bad == "dtype":
+        gc = gc.double()
+    elif bad == "shape":
+        pa = pr = torch.full((8, 2), 0.5, device="cuda")
+    else:
+        gc = torch.zeros(64, 8, device="cuda").t()
+    n0 = LAUNCHES["lev_smooth"]
+    with pytest.raises((TypeError, ValueError)):
+        lev_smooth(gc, pa, pr, g0)
+    assert LAUNCHES["lev_smooth"] == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["q28", "float"])
+def test_leveller_segment_on_card_equals_cpu(monkeypatch, chain):
+    """Two segments of each chain at 256 streams on the card and on the
+    CPU.  The kernel's output in the segment equals the plain version on
+    its own inputs, bit for bit, and is the state's ``lev_gain_db``.  Q28:
+    ``lev_gain_db``, ``lev_gain`` and the reduced outputs equal card vs
+    CPU.  Float (block lowering, whose products round in another order on
+    the card, so the envelope the gain computer reads differs there):
+    out/s24 within the float chain's 1e-6 relative RMS, peaks within 1 LSB,
+    the leveller state within the 3e-6 that test_torch_chain.py holds the
+    carried leveller leaves to (2.3e-6 read on an H100 for
+    ``lev_gain_db``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, pipeline
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.kernels import lev_cuda
+
+    calls = []
+
+    def recorded(*a):
+        out = lev_cuda.lev_smooth(*a)
+        calls.append(([v.cpu() for v in a], out.cpu()))
+        return out
+
+    monkeypatch.setattr(pipeline, "lev_smooth", recorded)
+    B, npkt = 256, 12
+    plat = Platform.RP2040 if chain == "q28" else Platform.RP2350
+    emit = "reduced" if chain == "q28" else "full"
+    engs = [Engine(full_chain_config(plat), n_streams=B, emit=emit,
+                   device=d) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(91)
+    n0 = LAUNCHES["lev_smooth"]
+    for seg in range(2):
+        x = rng.integers(-16000, 16000, size=(npkt, 2, 48, B)).astype(
+            np.int32)
+        k = len(calls)
+        gpu = engs[0].process(x)
+        assert LAUNCHES["lev_smooth"] == n0 + seg + 1
+        args, out = calls[k]
+        assert torch.equal(out.view(torch.int32),
+                           lev_cuda.lev_smooth_plain(*args).view(torch.int32))
+        assert torch.equal(engs[0].state.lev_gain_db.cpu(), out[-1])
+        cpu = engs[1].process(x)
+        assert set(gpu) == set(cpu)
+        if chain == "q28":
+            for key in cpu:
+                assert torch.equal(gpu[key].cpu(), cpu[key]), key
+        else:
+            for key in ("out", "s24"):
+                g, c = gpu[key].cpu().double(), cpu[key].double()
+                err = float((g - c).pow(2).mean().sqrt()
+                            / (c.pow(2).mean().sqrt() + 1e-30))
+                assert err < 1e-6, (key, err)
+            assert (gpu["peaks"].cpu() - cpu["peaks"]).abs().max() <= 1
+    st_g, st_c = engs[0].state, engs[1].state
+    errs = {}
+    for f in ("lev_gain_db", "lev_gain", "lev_gain_prev"):
+        g, c = getattr(st_g, f).cpu(), getattr(st_c, f)
+        if chain == "q28":
+            assert torch.equal(g, c), f
+        else:
+            errs[f] = float((g.double() - c.double()).pow(2).mean().sqrt()
+                            / (c.double().pow(2).mean().sqrt() + 1e-30))
+    assert all(e < 3e-6 for e in errs.values()), errs
