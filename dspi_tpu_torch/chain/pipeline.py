@@ -438,9 +438,10 @@ def _f32_outputs(static: StaticChain, p, st, bl, br, out_bands, sched):
     scan B as one float cascade call over the live outputs.  Returns (st',
     bufs, one [Ttot, B] tensor an output)."""
     if static.crossfeed_on:
-        bl, br, s4 = xf_f32(bl.contiguous(), br.contiguous(), p.xf,
-                            torch.cat([st.xf_lp, st.xf_ap]))
-        st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
+        with span("dspi.xf_f32"):
+            bl, br, s4 = xf_f32(bl.contiguous(), br.contiguous(), p.xf,
+                                torch.cat([st.xf_lp, st.xf_ap]))
+            st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
     bufs = []
     for o in range(static.n_outputs):
         if not static.output_enabled[o]:
@@ -455,12 +456,20 @@ def _f32_outputs(static: StaticChain, p, st, bl, br, out_bands, sched):
         del pl, pr
     if not out_bands:
         return st, bufs
+    with span("dspi.f32_cascade"):
+        st = _f32_outeq(static, p, st, bufs, out_bands, sched)
+    return st, bufs
+
+
+def _f32_outeq(static: StaticChain, p, st, bufs, out_bands, sched):
+    """Scan B as one float cascade call over the live outputs' planes of
+    ``bufs``, replaced in place by their outputs.  Returns st'."""
     live = sorted({ch - C.CH_OUT_1 for ch, _b, _k in out_bands})
     per_o = {o: [t for t in out_bands if t[0] - C.CH_OUT_1 == o]
              for o in live}
     nb = max(len(v) for v in per_o.values())
     lane = p.eq_f32.dim() == 4
-    B, dev = bl.shape[-1], bl.device
+    B, dev = bufs[live[0]].shape[-1], bufs[live[0]].device
     cf_g, s_g, kinds = [], [], []
     for o in live:
         cf, srows, kd = _f32_cascade(p, st, per_o[o], nb, lane, B, dev)
@@ -484,7 +493,7 @@ def _f32_outputs(static: StaticChain, p, st, bl, br, out_bands, sched):
     st = _scatter_states(st, out_bands, finals)
     for gi, o in enumerate(live):
         bufs[o] = y[gi]
-    return st, bufs
+    return st
 
 
 def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
@@ -548,8 +557,9 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
                     env_l, env_r = mxu.env_packet_ends(static, p, st, bl,
                                                        br, Npkt)
             elif static.loudness_on or master_bands or static.leveller_on:
-                st, bl, br, env = _f32_master(static, p, st, bl, br,
-                                              master_bands, sched)
+                with span("dspi.f32_cascade"):
+                    st, bl, br, env = _f32_master(static, p, st, bl, br,
+                                                  master_bands, sched)
                 if static.leveller_on:
                     env_l, env_r = env[0], env[1]
 

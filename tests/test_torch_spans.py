@@ -27,6 +27,7 @@ B, NPKT, BLOCK, NSEG = 2, 1, 48, 2
 PHASES = ["dspi.unpack", "dspi.master", "dspi.leveller", "dspi.outputs",
           "dspi.tail", "dspi.wire"]
 PATHS = ("float_block", "float_scan", "q28", "q28_hetero")
+SCAN_SPANS = ("dspi.f32_cascade", "dspi.xf_f32")
 
 
 def _engine(path):
@@ -110,8 +111,25 @@ def test_each_segment_emits_its_span_tree_once(path):
         gains = [o for o in live if not st.output_mute[o]]
         assert len(q15) == NSEG * (2 + 2 * len(live) + len(gains))
         assert set(q15) == {"dspi.unpack", "dspi.outputs", "dspi.tail"}
-    assert len(tree) == NSEG * (len(top) + len(PHASES)) + len(q15) + 1
+    scan = [n for n, _ in tree if n in SCAN_SPANS]
+    assert len(tree) == (NSEG * (len(top) + len(PHASES)) + len(q15)
+                         + len(scan) + 1)
     assert sorted(opened) == sorted(n for n, _ in tree)
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_scan_lowering_spans_nest_in_master_and_outputs(path):
+    """The scan lowering's kernel calls: one float cascade span in
+    ``dspi.master`` and one in ``dspi.outputs``, the crossfeed's span in
+    ``dspi.outputs``, once a segment each; no other path opens them."""
+    tree = _runs(path)[4]
+    got = [(n, p) for n, p in tree if n in SCAN_SPANS]
+    if path == "float_scan":
+        assert got == [("dspi.f32_cascade", "dspi.master"),
+                       ("dspi.xf_f32", "dspi.outputs"),
+                       ("dspi.f32_cascade", "dspi.outputs")] * NSEG
+    else:
+        assert got == []
 
 
 @pytest.mark.parametrize("path", PATHS)
