@@ -47,7 +47,15 @@ Phases (each prints one line; any failure exits non-zero):
      vs its plain version on the CPU, bit for bit, at [128, 16384] and
      [178, 17408] with uniform and per-lane alphas and edge inputs, and
      at [128, 16384] timed beside its bound and the plain version's time
-     on the card
+     on the card.  Then the Q28 chain's Q15 products (q15.cu: the matrix
+     mix of 5 outputs, all enabled as on the Q28 main paths and
+     with one disabled, and the per-packet output gain)
+     vs their plain versions on the card, bit for bit, with edge samples
+     and gains: at [6144, 16384] scalar gains, at [6144, 17408] per-lane
+     gains, on the 44/45 schedule at [5733, 16384], and at a lane count
+     that is not a multiple of 4; then a segment's Q15 work (one mix of 5
+     outputs and 5 gains) timed at 16384 and at 17408 lanes beside its
+     byte bound, and the plain versions' on the card
   6. the float main path at full width: Engine on the headline RP2350
      chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
      samples with state carried and a fresh input each (x ^ i); launch
@@ -61,8 +69,8 @@ Phases (each prints one line; any failure exits non-zero):
   8. the Q28 main path at full width: Engine on the RP2040 headline chain
      (full_chain_config, 7 channels), the same geometry, 16- and 24-bit
      input, 4 chained segments each; fails unless a segment launches the
-     cascade kernel twice, the crossfeed, leveller and PDM kernels
-     once.  Then the cascade, crossfeed and PDM kernels alone, on the
+     cascade kernel twice, the crossfeed, leveller, PDM and Q15 mix
+     kernels once and the Q15 gain kernel five times.  Then the cascade, crossfeed and PDM kernels alone, on the
      very arguments the path gave them, timed with CUDA events, beside
      their bounds (the crossfeed's from XF_OPS, the PDM kernel's from
      PDM_OPS and the per-lane cascade's from EQ_LANE_OPS, with the build's
@@ -229,6 +237,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # every main path runs the leveller: its packet recurrence (lev.cu) and
 # the PDM modulator launch once a segment each
 LEV_PDM = {"lev_smooth": 1, "pdm": 1}
+# the Q28 chain's Q15 products: the matrix mix once a segment, an output
+# gain once a live output (the RP2040 headline chain's 5)
+Q15 = {"q15_mix": 1, "q15_gain": 5}
 PIPE_OPS_PER_SM_CLOCK = 64
 ISSUE_PER_SM_CLOCK = 128
 # multiplies of two run-time values each function needs: fast_mul_q28 is
@@ -1160,6 +1171,124 @@ def phase_lev(dev) -> dict:
             "ops_per_lane_packet": ops}
 
 
+def _q15_args(gen, T, B, lane, sched, dev):
+    """A mix and a gain call's arguments: int32 planes over the whole
+    range with edge words (0, +-1, 0x7FFF, 0x8000, 0xFFFF, the int32
+    extremes) in their first rows; matrix gains [2, 5] or [2, 5, B] and
+    packet gains [Npkt, 1] or [Npkt, B] drawn from edge gains (0, 1,
+    0x7FFF, 32768, 0xFFFF, negative, the int32 extremes, -10 dB);
+    uniform 48-sample packets or the 44/45 schedule's ends."""
+    edges = torch.tensor([0, 1, -1, 0x7FFF, 0x8000, 0xFFFF, 32768, -32768,
+                          -2**31, 2**31 - 1], dtype=torch.int32, device=dev)
+    gvals = torch.tensor([0, 1, 0x7FFF, 32768, 0xFFFF, -1, -32768, -2**31,
+                          2**31 - 1, 10362], dtype=torch.int32, device=dev)
+
+    def plane():
+        x = _rand_i32(gen, -2**31, 2**31, (T, B), dev)
+        x[:len(edges), :len(edges)] = edges
+        x[:len(edges), 0] = edges
+        return x
+
+    def gains(*shape):
+        return gvals[torch.randint(0, len(gvals), shape, generator=gen,
+                                   device=dev)].contiguous()
+
+    if sched:
+        lengths = np.resize(np.array(SCHED441), T // 44 + 1)
+        lengths = lengths[np.cumsum(lengths) <= T]
+        if lengths.sum() != T:
+            fail(f"q15: {T} rows are not whole 44/45 packets")
+        ends = torch.from_numpy(np.cumsum(lengths).astype(np.int32)).to(dev)
+    else:
+        lengths, ends = np.full(T // BLOCK, BLOCK), None
+    return (plane(), plane(), gains(2, 5, B) if lane else gains(2, 5),
+            gains(len(lengths), B if lane else 1), ends)
+
+
+def phase_q15(dev) -> dict:
+    """The Q15 mix and gain kernels (q15.cu) vs their plain versions on
+    the card, bit for bit (integer operations only, so the plain version
+    gives the same words on the card as on the CPU), at the Q28 cells'
+    shapes; then a segment's Q15 work (the mix of 5 outputs, 5 in-place
+    gains on its planes) timed with CUDA events at 16,384 and 17,408
+    lanes beside its byte bound, and the plain versions' on the card."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.kernels import LAUNCHES
+    from dspi_tpu_torch.kernels.q15_cuda import (q15_gain, q15_gain_plain,
+                                                 q15_mix, q15_mix_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    # the Q28 main paths' outputs (all 5 enabled), then one disabled
+    main_on = tuple(o.enabled for o in full_chain_config(Platform.RP2040)
+                    .outputs)
+    for T, B, lane, sched in ((PACKETS * BLOCK, STREAMS, False, False),
+                              (PACKETS * BLOCK, 17408, True, False),
+                              (sum(SCHED441), STREAMS, False, True),
+                              (sum(SCHED441), 17408, True, True),
+                              (PACKETS * BLOCK, 4101, True, False)):
+        bl, br, mg, og, ends = _q15_args(gen, T, B, lane, sched, dev)
+        for on in (main_on, (True, True, False, True, True)):
+            n0 = dict(LAUNCHES)
+            got = q15_mix(bl, br, mg, on)
+            want = q15_mix_plain(bl, br, mg, on)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"q15 mix kernel != plain version at [{T}, {B}] (per "
+                     f"lane {lane}, outputs {on})")
+            y = q15_gain(got[3].clone(), og, ends)
+            if not torch.equal(y, q15_gain_plain(got[3].clone(), og, ends)):
+                fail(f"q15 gain kernel != plain version at [{T}, {B}] (per "
+                     f"lane {lane}, schedule {sched})")
+            if (LAUNCHES["q15_mix"] - n0.get("q15_mix", 0),
+                    LAUNCHES["q15_gain"] - n0.get("q15_gain", 0)) != (1, 1):
+                fail("q15: a call did not count one launch")
+            del got, want, y
+        del bl, br
+    rows = {}
+    for B, lane in ((STREAMS, False), (17408, True)):
+        T = PACKETS * BLOCK
+        bl, br, mg, og, _ = _q15_args(gen, T, B, lane, False, dev)
+        live = (True,) * 5
+
+        def segment(mix, gain):
+            for x in mix(bl, br, mg, live):
+                gain(x, og)
+
+        kern_ms = cuda_ms(lambda: segment(q15_mix, q15_gain), 20)
+        plain_ms = cuda_ms(lambda: segment(q15_mix_plain, q15_gain_plain), 2)
+        # the mix reads bl and br and writes 5 planes; a gain reads and
+        # writes one; the gains' own bytes are <0.1% of that
+        nbytes = 4 * T * B * (2 + 5 + 2 * 5) + 4 * (mg.numel()
+                                                    + 5 * og.numel())
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        rows[B] = {"shape": [T, B], "per_lane": lane, "ms": kern_ms,
+                   "plain_ms": plain_ms, "bytes": nbytes,
+                   "bound_ms": bound_ms,
+                   "pct_of_bound": 100 * bound_ms / kern_ms}
+        print(f"q15: a segment's mix of 5 outputs and 5 gains at [{T}, {B}] "
+              f"({'per-lane' if lane else 'scalar'} gains): kernels "
+              f"{kern_ms:.3f} ms, byte bound {bound_ms:.3f} ms "
+              f"({nbytes / 1e9:.3f} GB at 3.35 TB/s; "
+              f"{100 * bound_ms / kern_ms:.1f}% of it), plain versions on "
+              f"the card {plain_ms:.1f} ms", flush=True)
+        del bl, br
+        torch.cuda.empty_cache()
+    print("q15: mix and gain kernels == plain versions bit for bit at "
+          f"[6144, {STREAMS}] and [6144, 17408], scalar and per-lane gains, "
+          "all 5 outputs and 4 of 5, the 44/45 schedule, 4101 lanes",
+          flush=True)
+    r = rows[STREAMS]
+    return {"name": "q15", "route": "cuda",
+            "source": "dspi_tpu_torch/kernels/csrc/q15.cu",
+            "replaces": "dspi_tpu/chain/pipeline.py PASS 4 and the output "
+                        "gains (q15_mul, elementwise; no TPU kernel)",
+            "max_abs_err": 0, "plain_ms": r["plain_ms"], "library_ms": None,
+            "equal_to_plain": True, "plain_shape": r["shape"],
+            "kernel_ms_at_plain_shape": r["ms"], "ms": r["ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "at_17408": rows[17408]}
+
+
 def eq_sample_ops(nb: int, loud: bool, env: bool, lane: bool) -> dict:
     """This build's SASS counts a stream-sample of the cascade kernel's
     instance <nb, loud, env>: cascade_kernel, or lane_kernel per lane."""
@@ -1493,7 +1622,7 @@ def phase_q28_main(dev, card: str, bit_depth: int, record: bool) -> dict:
     x = _rand_i32(gen, -lim, lim, (PACKETS, 2, BLOCK, STREAMS), dev)
     result = drive_path(dev, card, f"Q28 main path ({bit_depth}-bit)", eng, x,
                         STREAMS * PACKETS * BLOCK / RATE,
-                        {"eq_q28": 2, "xf_q28": 1, **LEV_PDM}, 7)
+                        {"eq_q28": 2, "xf_q28": 1, **LEV_PDM, **Q15}, 7)
     if record:
         result["calls"] = record_calls(eng, x, "Q28 main path")
     return result
@@ -1527,7 +1656,7 @@ def phase_hetero(dev, card: str) -> dict:
     result = drive_path(dev, card, "Q28 hetero path", srv, x,
                         STREAMS * PACKETS * BLOCK / RATE,
                         {"eq_q28": 2, "eq_q28_lane_cf": 2, "xf_q28": 1,
-                         **LEV_PDM}, 7)
+                         **LEV_PDM, **Q15}, 7)
     result.update(padding_waste=srv.padding_waste, lanes=lanes,
                   calls=record_calls(srv, x, "Q28 hetero path"))
     if not all(c["lane_cf"] for c in result["calls"] if c["kind"] == "eq"):
@@ -1555,7 +1684,7 @@ def phase_44k1(dev, card: str) -> dict:
     result = drive_path(dev, card, "Q28 44.1 kHz path", eng, x,
                         STREAMS * ttot / 44100.0,
                         {"eq_q28": 2, "eq_q28_sched": 2, "xf_q28": 1,
-                         **LEV_PDM}, 7)
+                         **LEV_PDM, **Q15}, 7)
     result["calls"] = record_calls(eng, x, "Q28 44.1 kHz path")
     if not all(c["sched"] for c in result["calls"] if c["kind"] == "eq"):
         fail("Q28 44.1 kHz path: a cascade call ran without the schedule")
@@ -2786,6 +2915,7 @@ def main() -> None:
     eqf_times = phase_eq_f32(dev)
     xff_row = phase_xf_f32(dev)
     lev_row = phase_lev(dev)
+    q15_row = phase_q15(dev)
     main_path = phase_main(dev, card)
     phase_card_vs_cpu(dev)
     q28 = phase_q28_main(dev, card, 16, record=True)
@@ -2886,6 +3016,10 @@ def main() -> None:
                      (lev_row, "lev_smooth")):
         row["launches_by_path"] = {p: n.get(key, 0) for p, n in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+    q15_row["launches_by_path"] = {
+        p: n.get("q15_mix", 0) + n.get("q15_gain", 0)
+        for p, n in paths.items()}
+    q15_row["launches"] = sum(q15_row["launches_by_path"].values())
     # the scalar mode's time and bound per segment: its two calls
     eq_row.update(_path_rows(q28["calls"], "eq"))
     xf_call = next(c for c in q28["calls"] if c["kind"] == "xf")
@@ -2922,7 +3056,8 @@ def main() -> None:
         "stage_settings": STAGE_SMALL, "graft": graft,
         "firmware_oracles": oracle}, "fuzz": fuzz}), flush=True)
     print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
-                                  xf_row, eqf_row, xff_row, lev_row]}),
+                                  xf_row, eqf_row, xff_row, lev_row,
+                                  q15_row]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -58,6 +58,7 @@ from ..kernels.eq_cuda import q28_cascades
 from ..kernels.eq_f32_cuda import f32_cascades
 from ..kernels.lev_cuda import lev_smooth
 from ..kernels.pdm_cuda import pdm_segment
+from ..kernels.q15_cuda import q15_gain, q15_mix
 from ..kernels.xf_cuda import xf_q28
 from ..kernels.xf_f32_cuda import xf_f32
 from ..runtime.telemetry import span
@@ -856,7 +857,6 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
     schedule, emit='full' outputs are time-flat ([K, Ttot, B])."""
     with span("dspi.segment"):
         x2, sched, Npkt, Ttot = _segment_layout(static, x)
-        B = x2.shape[-1]
         nout = static.n_outputs
         ns2 = static.n_spdif * 2
         dev = x.device
@@ -896,6 +896,9 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
                 env_f = env.to(_F32) * _INV_Q28              # [2, Npkt, B]
                 gdbs = _lev_gain_db(p, torch.maximum(env_f[0], env_f[1]),
                                     sched, st.lev_gain_db)
+                # dead from here: freed before the wire stage, where the
+                # segment's memory peaks
+                del env, env_f
                 # the Q28 gains of all packets in one pass
                 g_cur_p = f32_to_i32(                       # [Npkt, B]
                     fmath.exp10_f32(gdbs * _INV20) * float(C.Q28_ONE))
@@ -965,16 +968,11 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
                                     torch.cat([st.xf_lp, st.xf_ap]))
                 st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
 
-            # ---- PASS 4: matrix (usb_audio.c:1075-1100).
-            # q15_mul(x, 0) == 0, so the firmware's branches on zero gains
-            # all come to this sum ----
-            bufs = []
-            for o in range(nout):
-                if not static.output_enabled[o]:
-                    bufs.append(torch.zeros_like(bl))
-                    continue
-                bufs.append(q15_mul(bl, p.matrix_gain[0, o])
-                            + q15_mul(br, p.matrix_gain[1, o]))
+            # ---- PASS 4: matrix (usb_audio.c:1075-1100), every enabled
+            # output in one Q15 kernel launch.  q15_mul(x, 0) == 0, so the
+            # firmware's branches on zero gains all come to this sum ----
+            bufs = q15_mix(bl.contiguous(), br.contiguous(),
+                           p.matrix_gain.contiguous(), static.output_enabled)
             del bl, br
 
             # ---- PASS 5: per-output EQ ----
@@ -982,21 +980,22 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
                 st, bufs = _q28_outeq(static, p, st, bufs, out_bands, sched)
 
         with span("dspi.tail"):
-            # output gains (usb_audio.c:1203-1212): float multiply, then
-            # Q15 apply per packet (a zero gain needs no branch:
-            # q15_mul(x, 0) == 0)
+            # output gains (usb_audio.c:1203-1212): float multiply, every
+            # output's at once ([nout, Npkt, 1|B]), then Q15 apply per
+            # packet, one kernel launch an output, in place on the output's
+            # own plane (a zero gain needs no branch: q15_mul(x, 0) == 0)
+            gains = f32_to_i32(p.out_gain.reshape(nout, 1, -1)
+                               * vol_mul_master.to(_F32))
+            ends = (torch.from_numpy(np.cumsum(sched).astype(np.int32)).to(dev)
+                    if static.schedule else None)
             for o in range(nout):
                 if not static.output_enabled[o]:
                     continue
                 if static.output_mute[o]:
                     bufs[o] = torch.zeros_like(bufs[o])
                     continue
-                gain = f32_to_i32(p.out_gain[o] * vol_mul_master.to(_F32))
-                if static.schedule:           # [Ttot, 1|B] along the packets
-                    bufs[o] = q15_mul(bufs[o], _per_packet(gain, sched, Ttot))
-                else:                         # [Npkt, 1, 1|B]
-                    bufs[o] = q15_mul(bufs[o].reshape(Npkt, -1, B),
-                                      gain[:, None, :]).reshape(Ttot, B)
+                bufs[o] = q15_gain(bufs[o].contiguous(), gains[o], ends)
+            del gains, ends
 
             # delay lines (usb_audio.c:1213-1227)
             if static.delayed_outputs:

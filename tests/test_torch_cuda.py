@@ -590,3 +590,172 @@ def test_leveller_segment_on_card_equals_cpu(monkeypatch, chain):
             errs[f] = float((g.double() - c.double()).pow(2).mean().sqrt()
                             / (c.double().pow(2).mean().sqrt() + 1e-30))
     assert all(e < 3e-6 for e in errs.values()), errs
+
+
+def _q15_case(T, B, lane, sched, seed):
+    """A mix and a gain call's arguments on the card: int32 planes over the
+    whole range with the edge words in their first rows, gains among the
+    edge gains, the 44/45 schedule's ends or uniform 48-sample packets."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def plane():
+        x = torch.randint(-2**31, 2**31, (T, B), generator=gen,
+                          dtype=torch.int64, device="cuda").to(torch.int32)
+        edges = torch.tensor([0, 1, -1, 0x7FFF, 0x8000, 0xFFFF, 32768,
+                              -32768, -2**31, 2**31 - 1, 2**31 - 2,
+                              -2**31 + 1], dtype=torch.int32, device="cuda")
+        n = min(len(edges), B)
+        x[:min(T, 12), :n] = edges[:n]
+        x[:min(T, 12), 0] = edges[:min(T, 12)]
+        return x
+
+    gvals = torch.tensor([0, 1, 0x7FFF, 0x8000, 0xFFFF, 32768, -1, -32768,
+                          -2**31, 2**31 - 1, 26028, 0x10000],
+                         dtype=torch.int32, device="cuda")
+
+    def gains(*shape):
+        idx = torch.randint(0, len(gvals), shape, generator=gen,
+                            device="cuda")
+        return gvals[idx].contiguous()
+
+    if sched:
+        pattern = np.resize(((44,) * 9 + (45,)), T // 44 + 1)
+        lengths = pattern[np.cumsum(pattern) <= T]
+        lengths[-1] += T - lengths.sum()
+        ends = torch.from_numpy(np.cumsum(lengths).astype(np.int32)).cuda()
+        npkt = len(lengths)
+    else:
+        ends, npkt = None, T // 48
+    bl, br = plane(), plane()
+    mg = gains(2, 5, B) if lane else gains(2, 5)
+    og = gains(npkt, B if lane else 1)
+    return bl, br, mg, og, ends
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,lane,sched", [
+    (6144, 16384, False, False), (6144, 16384, True, False),
+    (6144, 17408, False, False), (6144, 17408, True, False),
+    (5733, 16384, False, True), (5733, 17408, True, True),
+    (96, 4101, True, False), (96, 197, False, True), (48, 3, True, False),
+    (48, 1, False, False)])
+def test_q15_kernels_equal_plain(T, B, lane, sched):
+    """The Q15 mix and gain kernels against their plain versions on the
+    card, bit for bit: the Q28 cells' [6144, 16,384] and [6144, 17,408],
+    scalar and per-lane gains, the 44/45 schedule's packet ends, lane
+    counts that are not a multiple of 4 (the one-lane-a-thread instances),
+    all 5 outputs enabled as on the Q28 main paths and then one disabled;
+    one launch a call.  At the smaller shapes also
+    against the plain versions on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.kernels.q15_cuda import (q15_gain, q15_gain_plain,
+                                                 q15_mix, q15_mix_plain)
+
+    bl, br, mg, og, ends = _q15_case(T, B, lane, sched, seed=T + B + lane)
+    main = tuple(o.enabled for o in full_chain_config(Platform.RP2040)
+                 .outputs)
+    assert main == (True,) * 5
+    for enabled in (main, (True, True, False, True, True)):
+        n0 = dict(LAUNCHES)
+        got = q15_mix(bl, br, mg, enabled)
+        torch.cuda.synchronize()
+        assert LAUNCHES["q15_mix"] == n0.get("q15_mix", 0) + 1
+        want = q15_mix_plain(bl, br, mg, enabled)
+        for o in range(5):
+            assert torch.equal(got[o], want[o]), (enabled, o)
+        x = got[3]
+        y = x.clone()
+        out = q15_gain(y, og, ends)
+        torch.cuda.synchronize()
+        assert out is y
+        assert LAUNCHES["q15_gain"] == n0.get("q15_gain", 0) + 1
+        assert torch.equal(y, q15_gain_plain(x.clone(), og, ends))
+        if T * B <= 96 * 4101:
+            cpu = [v.cpu() for v in (bl, br, mg)]
+            for g, w in zip(got, q15_mix_plain(*cpu, enabled)):
+                assert torch.equal(g.cpu(), w)
+            assert torch.equal(y.cpu(), q15_gain_plain(
+                x.cpu(), og.cpu(), None if ends is None else ends.cpu()))
+        del got, want, x, y
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["mix", "gain"])
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "contiguous"])
+def test_q15_kernels_refuse(fn, bad):
+    """A tensor on another device, of another dtype, of a wrong shape or
+    not contiguous raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch.kernels.q15_cuda import q15_gain, q15_mix
+
+    x = torch.zeros(96, 64, dtype=torch.int32, device="cuda")
+    g = torch.zeros((2, 3) if fn == "mix" else (2, 1), dtype=torch.int32,
+                    device="cuda")
+    if bad == "device":
+        g = g.cpu()
+    elif bad == "dtype":
+        g = g.long()
+    elif bad == "shape":
+        g = torch.zeros((2, 3, 7) if fn == "mix" else (2, 7),
+                        dtype=torch.int32, device="cuda")
+    else:
+        x = torch.zeros(64, 96, dtype=torch.int32, device="cuda").t()
+    n0 = dict(LAUNCHES)
+    with pytest.raises((TypeError, ValueError)):
+        if fn == "mix":
+            q15_mix(x, x, g, (True, False, True))
+        else:
+            q15_gain(x, g)
+    assert dict(LAUNCHES) == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["q28", "q28_hetero", "q28_44k1"])
+def test_q28_segment_q15_on_card_equals_cpu(path):
+    """Two Q28 segments at 256 streams on the card and on the CPU, every
+    output and state word equal: the headline chain, HeteroServer over
+    two tenants with their own matrices (per-lane mix and gain gains) and
+    the 44/45 schedule; one mix and five gain launches a segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, HeteroServer
+    from dspi_tpu_torch.configs import full_chain_config, hetero_variants
+    from dspi_tpu_torch.params.types import Crosspoint
+
+    B, npkt, sched = 256, 4, ((44,) * 9 + (45,))
+    kw = dict(emit="full", pdm=False)
+
+    def make(dev):
+        if path == "q28_hetero":
+            cfgs = hetero_variants(2, Platform.RP2040)
+            cfgs[1].crosspoints[0][2] = Crosspoint(True, True, -3.5)
+            return HeteroServer(cfgs, np.arange(B) % 2, device=dev, **kw)
+        if path == "q28_44k1":
+            return Engine(full_chain_config(Platform.RP2040, 44100.0), B,
+                          schedule=sched, device=dev, **kw)
+        return Engine(full_chain_config(Platform.RP2040), B, device=dev, **kw)
+
+    engs = [make(d) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(151)
+    shape = ((2, sum(sched), B) if path == "q28_44k1"
+             else (npkt, 2, 48, B))
+    for seg in range(2):
+        x = rng.integers(-30000, 30000, size=shape).astype(np.int32)
+        n0 = dict(LAUNCHES)
+        gpu = engs[0].process(x)
+        torch.cuda.synchronize()
+        assert LAUNCHES["q15_mix"] - n0.get("q15_mix", 0) == 1
+        assert LAUNCHES["q15_gain"] - n0.get("q15_gain", 0) == 5
+        cpu = engs[1].process(x)
+        assert set(gpu) == set(cpu)
+        for key in cpu:
+            assert torch.equal(gpu[key].cpu(), cpu[key]), (seg, key)
+    for f, a, b in zip(engs[1].state._fields, engs[0].state, engs[1].state):
+        assert (a is None) == (b is None), f
+        assert a is None or torch.equal(a.cpu(), b), f

@@ -106,10 +106,11 @@ def test_each_segment_emits_its_span_tree_once(path):
     if st.is_float:
         assert q15 == []
     else:
-        # volume staging, two a matrix row, one an output gain
+        # volume staging two, the matrix mix one (all live outputs in
+        # one kernel call), one an output gain
         live = [o for o in range(st.n_outputs) if st.output_enabled[o]]
         gains = [o for o in live if not st.output_mute[o]]
-        assert len(q15) == NSEG * (2 + 2 * len(live) + len(gains))
+        assert len(q15) == NSEG * (2 + 1 + len(gains))
         assert set(q15) == {"dspi.unpack", "dspi.outputs", "dspi.tail"}
     scan = [n for n, _ in tree if n in SCAN_SPANS]
     assert len(tree) == (NSEG * (len(top) + len(PHASES)) + len(q15)
