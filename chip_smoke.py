@@ -258,7 +258,7 @@ EQ_LANE_OPS = {(10, True, True): {"alu_only": 109.0, "arith": 361.0},
 # float32 issue or bytes: FP32_PER_SM_CLOCK float multiplies, adds and
 # subtracts a clock on each SM (4 x 32 FP32 lanes), at the card's maximum
 # SM clock.  Their operation counts a stream-sample are pinned from the
-# functions (kernels/eq_f32.py, kernels/xf_f32_cuda.py), every multiply,
+# functions (kernels/eq_f32.py, kernels/xf_cuda.py), every multiply,
 # add and subtract counted once, since none may fuse: by band kind (SKIP
 # 0, TDF2 9: 5 multiplies and 4 adds; an SVF's state 12, plus its output
 # mix: low-pass 0, high-pass 3, peaking 2, shelf 5), a loudness filter a
@@ -1061,7 +1061,7 @@ def phase_xf_f32(dev) -> dict:
     """Float crossfeed kernel vs its plain version on the card, bit for
     bit, over three chained segments, the last with per-lane
     coefficients."""
-    from dspi_tpu_torch.kernels.xf_f32_cuda import xf_f32, xf_f32_plain
+    from dspi_tpu_torch.kernels.xf_cuda import xf_f32, xf_f32_plain
 
     T, B = 2 * BLOCK, 4100
     gen = torch.Generator(device=dev).manual_seed(67)
@@ -1927,8 +1927,7 @@ def check_path_call(kind, fn, a, k) -> dict:
     cut to the same lanes), every word equal."""
     from dspi_tpu_torch.kernels.eq import q28_cascades_plain
     from dspi_tpu_torch.kernels.eq_f32 import f32_cascades_plain
-    from dspi_tpu_torch.kernels.xf_cuda import xf_q28_plain
-    from dspi_tpu_torch.kernels.xf_f32_cuda import xf_f32_plain
+    from dspi_tpu_torch.kernels.xf_cuda import xf_f32_plain, xf_q28_plain
 
     B = a[0].shape[-1]
     idx = _edge_lanes(B, a[0].device)

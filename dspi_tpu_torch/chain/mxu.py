@@ -74,11 +74,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import constants as C
 from ..kernels.eq_f32 import band_step_f32 as _band_step_f32
 from ..kernels.eq_f32 import svf_general_f32 as _svf_general_f32
-from .pipeline import (_gather_states, _pattern_len, _pkts_to_flat,
-                       _scatter_states)
+from . import layout
+from .layout import _chain_structure, _pattern_len, _pkts_to_flat
 
 _F32 = torch.float32
 
@@ -344,30 +343,6 @@ def _make_a_step(static, p, ch_bands):
     return step, (4 if loud else 0) + 2 * len(ch_bands)
 
 
-def _a_state_get(static, st, ch, ch_bands):
-    rows = []
-    if static.loudness_on:
-        for j in range(2):
-            rows += [st.loud_a[ch, j], st.loud_b[ch, j]]
-    for pair in _gather_states(st, ch_bands):
-        rows += list(pair)
-    return torch.stack(rows)
-
-
-def _a_state_set(static, st, ch, ch_bands, vec):
-    i = 0
-    if static.loudness_on:
-        loud_a, loud_b = st.loud_a.clone(), st.loud_b.clone()
-        for j in range(2):
-            loud_a[ch, j] = vec[i]
-            loud_b[ch, j] = vec[i + 1]
-            i += 2
-        st = st._replace(loud_a=loud_a, loud_b=loud_b)
-    finals = [(vec[i + 2 * n], vec[i + 2 * n + 1])
-              for n in range(len(ch_bands))]
-    return _scatter_states(st, ch_bands, finals) if ch_bands else st
-
-
 def chain_a(static, p, blocks: Blocks, st, bl, br, master_bands, Npkt,
             groups=None):
     """Loudness + master EQ on both channels as per-packet products.
@@ -375,17 +350,17 @@ def chain_a(static, p, blocks: Blocks, st, bl, br, master_bands, Npkt,
     bl/br: [Ttot, B] post-preamp samples; ``groups``: K with per-group
     blocks.  Returns (st', bl', br')."""
     lay = sched_layout(static, Npkt, lti=True)
+    cas = layout.master_cascades(static, master_bands)
     outs = [bl, br]
     for ch in (0, 1):
         M = blocks.a[ch]
         if M is None:
             continue
-        ch_bands = [t for t in master_bands if t[0] == ch]
-        s0 = _a_state_get(static, st, ch, ch_bands)
+        s0 = torch.stack(layout.cascade_rows(cas, st, ch))
         sF, y = _apply_blocked(M, lay, _to_packets(outs[ch], lay), s0,
                                groups)
         outs[ch] = _to_flat(y, lay)
-        st = _a_state_set(static, st, ch, ch_bands, sF)
+        st = layout.scatter_one(cas, st, ch, sF)
     return st, outs[0], outs[1]
 
 
@@ -488,14 +463,6 @@ def _make_out_step(p, o_bands, pad):
     return step
 
 
-def _out_groups(out_bands):
-    live = sorted({ch - C.CH_OUT_1 for (ch, _b, _k) in out_bands})
-    per_o = {o: [t for t in out_bands if t[0] - C.CH_OUT_1 == o]
-             for o in live}
-    s_max = max(2 * len(b) for b in per_o.values())
-    return live, per_o, s_max
-
-
 def chain_b(static, p, blocks: Blocks, st, bl, br, out_bands, Npkt,
             groups=None):
     """Crossfeed + matrix + per-output EQ.
@@ -538,26 +505,16 @@ def chain_b(static, p, blocks: Blocks, st, bl, br, out_bands, Npkt,
     del bl, br
 
     if out_bands:
-        live, per_o, s_max = _out_groups(out_bands)
-        s_rows = []
-        for o in live:
-            rows = [r for pair in _gather_states(st, per_o[o])
-                    for r in pair]
-            rows += [torch.zeros_like(rows[0])] * (s_max - len(rows))
-            s_rows.append(torch.stack(rows))
-        s0 = torch.stack(s_rows)                          # [Go, S_max, B]
-        x_g = torch.stack([_to_packets(bufs[o], lay) for o in live],
+        cas = layout.output_cascades(out_bands)
+        s0 = layout.states(cas, st)                       # [Go, S_max, B]
+        x_g = torch.stack([_to_packets(bufs[o], lay) for o in cas.keys],
                           dim=1)                          # [Npkt, Go, T, B]
         sF, y = _apply_blocked(blocks.out, lay, x_g, s0, groups)
         del x_g
-        bands, finals = [], []
-        for gi, o in enumerate(live):
-            for j, t in enumerate(per_o[o]):
-                bands.append(t)
-                finals.append((sF[gi, 2 * j], sF[gi, 2 * j + 1]))
+        for gi, o in enumerate(cas.keys):
             bufs[o] = _to_flat(y[:, gi], lay)
         del y
-        st = _scatter_states(st, bands, finals)
+        st = layout.scatter(cas, st, sF)
     return st, bufs
 
 
@@ -571,8 +528,6 @@ def build_blocks(static, p, device) -> Blocks:
     from the (homogeneous) parameter set ``p`` and moved to ``device``;
     for a scheduled chain, one per distinct block size of its LTI layout
     (``sched_layout(lti=True)``)."""
-    from .pipeline import _chain_structure
-
     require_fp32()
     p = type(p)(*[None if v is None
                   else v.detach().cpu() if isinstance(v, torch.Tensor)
@@ -581,8 +536,7 @@ def build_blocks(static, p, device) -> Blocks:
     master_bands, out_bands = _chain_structure(static)
 
     a = []
-    for ch in (0, 1):
-        ch_bands = [t for t in master_bands if t[0] == ch]
+    for ch_bands in layout.master_cascades(static, master_bands).bands:
         step, S = _make_a_step(static, p, ch_bands)
         if S == 0:
             a.append(None)
@@ -602,13 +556,13 @@ def build_blocks(static, p, device) -> Blocks:
 
     out = None
     if out_bands:
-        live, per_o, s_max = _out_groups(out_bands)
+        cas = layout.output_cascades(out_bands)
+        s_max = 2 * cas.nb
 
         def build_out(n):
             Ms = []
-            for o in live:
-                step = _make_out_step(p, per_o[o],
-                                      s_max - 2 * len(per_o[o]))
+            for o_bands in cas.bands:
+                step = _make_out_step(p, o_bands, s_max - 2 * len(o_bands))
                 Y, sF = _linearize(step, n, 1, s_max)
                 Ms.append(torch.cat([Y, sF]))
             return torch.stack(Ms)                        # [Go, n+S, n+S]

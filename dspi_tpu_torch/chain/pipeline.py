@@ -19,7 +19,7 @@ model, and it takes per-group block matrices over K contiguous lane
 groups for grouped serving.  On the scan lowering (``mxu=False``) the
 per-sample recurrences run as they are written: loudness, master EQ and
 the envelope as one float cascade kernel call (kernels/eq_f32_cuda.py),
-the crossfeed as its own kernel (kernels/xf_f32_cuda.py), the matrix mix
+the crossfeed as its own kernel (kernels/xf_cuda.py), the matrix mix
 as tensor ops, the per-output EQ as a second cascade call; every float
 operation rounds on its own, and any leaf of the params may carry a
 trailing [B] stream axis (per-stream parameters).  The rest runs as
@@ -36,7 +36,10 @@ In both, the leveller's packet-rate gain smoothing is one kernel call
 (kernels/lev_cuda.py, one thread a stream over the packets), the PDM
 modulator is the CUDA kernel (kernels/pdm_cuda.py) and, with
 ``static.wire``, the s24 samples become the S/PDIF or I2S wire words
-(kernels/encoders.py) on the device.
+(kernels/encoders.py) on the device.  Which bands run in which cascade,
+and in what order a cascade's states sit, is chain/layout.py's, shared
+with the block lowering; each chain's cascade calls here add only what is
+its number format's: coefficient rows, scalars and the kernel call.
 
   PASS 1  unpack + preamp + loudness            usb_audio.c:590-718 / 996-1047
   PASS 2  master EQ block                       dsp_pipeline.c:282-365 / .S
@@ -59,10 +62,11 @@ from ..kernels.eq_f32_cuda import f32_cascades
 from ..kernels.lev_cuda import lev_smooth
 from ..kernels.pdm_cuda import pdm_segment
 from ..kernels.q15_cuda import q15_gain, q15_mix
-from ..kernels.xf_cuda import xf_q28
-from ..kernels.xf_f32_cuda import xf_f32
+from ..kernels.xf_cuda import xf_f32, xf_q28
 from ..runtime.telemetry import span
-from .pack import SKIP, TDF2, StaticChain
+from . import layout, mxu
+from .layout import _chain_structure, _pkts_to_flat
+from .pack import SKIP, StaticChain
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -71,63 +75,20 @@ _TINY = float(np.float32(1e-30))
 
 
 # ----------------------------------------------------------------------------
-# structure and layout helpers
+# segment helpers, both chains
 # ----------------------------------------------------------------------------
 
 
-def _active_bands(static: StaticChain, channels):
-    """(ch, band, kind) for every non-skipped band of the given channels."""
-    out = []
-    for ch in channels:
-        for band, kind in enumerate(static.band_kinds[ch]):
-            if kind != SKIP:
-                out.append((ch, band, kind))
-    return out
-
-
-def _chain_structure(static: StaticChain):
-    """Which master bands and which output bands are live.  On RP2040,
-    bypass_master_eq gates the per-output EQ too (usb_audio.c:1200)."""
-    nout = static.n_outputs
-    master_bands = _active_bands(
-        static, [ch for ch in (0, 1)
-                 if not static.bypass_master_eq
-                 and not static.channel_bypassed[ch]])
-    if not static.is_float and static.bypass_master_eq:
-        return master_bands, []
-    out_channels = [
-        C.CH_OUT_1 + o for o in range(nout)
-        if static.output_enabled[o] and not static.output_mute[o]
-        and not static.channel_bypassed[C.CH_OUT_1 + o]]
-    return master_bands, _active_bands(static, out_channels)
-
-
-def _gather_states(state, bands):
-    """(a, b) state pair per band: SVF bands keep eq_c/eq_d, TDF2 eq_a/eq_b."""
-    init = []
-    for ch, band, kind in bands:
-        if kind != TDF2:
-            init.append((state.eq_c[ch, band], state.eq_d[ch, band]))
-        else:
-            init.append((state.eq_a[ch, band], state.eq_b[ch, band]))
-    return tuple(init)
-
-
-def _scatter_states(state, bands, finals):
-    """Write final band states back, one indexed write per state array.
-    The arrays are this segment's own copies (``process_float`` and
-    ``process_q28`` clone them), so the writes are in place."""
-    groups = {}
-    for (ch, band, kind), (sa, sb) in zip(bands, finals):
-        fa, fb = ("eq_a", "eq_b") if kind == TDF2 else ("eq_c", "eq_d")
-        for f, row in ((fa, sa), (fb, sb)):
-            cs, bs, vs = groups.setdefault(f, ([], [], []))
-            cs.append(ch)
-            bs.append(band)
-            vs.append(row)
-    for f, (cs, bs, vs) in groups.items():
-        getattr(state, f)[cs, bs] = torch.stack(vs)
-    return state
+def _lookahead(static: StaticChain, st, bl, br, Ttot):
+    """The leveller's lookahead: the time-ordered ring ``lev_la`` ahead of
+    the segment, the delayed stream a window of concat(ring, segment).
+    Returns (st', out_l, out_r); without lookahead the input itself."""
+    if not static.leveller_lookahead:
+        return st, bl, br
+    comb_l = torch.cat([st.lev_la[0], bl], dim=0)
+    comb_r = torch.cat([st.lev_la[1], br], dim=0)
+    st = st._replace(lev_la=torch.stack([comb_l[Ttot:], comb_r[Ttot:]]))
+    return st, comb_l[:Ttot], comb_r[:Ttot]
 
 
 def _delay_apply(ring_k, buf, dly, T, D):
@@ -149,6 +110,42 @@ def _delay_apply(ring_k, buf, dly, T, D):
     return delayed, ring_new
 
 
+def _delay_lines(static: StaticChain, p, st, bufs, Ttot):
+    """The delay lines (usb_audio.c:897-911 / 1213-1227): each delayed
+    output's plane of ``bufs`` replaced by its delayed read.  Returns st'
+    with the new rings."""
+    if not static.delayed_outputs:
+        return st
+    rows = []
+    for k, o in enumerate(static.delayed_outputs):
+        bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
+                                       p.delay_samples[k], Ttot,
+                                       static.delay_ring)
+        rows.append(ring_k)
+    return st._replace(delay=torch.stack(rows))
+
+
+def _peaks_clip(static: StaticChain, st, peak_ml, peak_mr, bufs, thresh):
+    """The segment's peaks, [nch', B]: the master pair (pre-crossfeed),
+    the S/PDIF outputs and the sub; and the sticky clip flags of those over
+    ``thresh`` (sticky over the segment == sticky per packet).  Returns
+    (st', peaks)."""
+    ns2, nout = static.n_spdif * 2, static.n_outputs
+    peaks = [peak_ml, peak_mr]
+    for o in range(ns2):
+        peaks.append(bufs[o].abs().amax(dim=0))
+    if static.output_enabled[nout - 1]:
+        peaks.append(bufs[nout - 1].abs().amax(dim=0))
+    else:
+        peaks.append(torch.zeros_like(peak_ml))
+    peaks = torch.stack(peaks)
+    clip = st.clip_flags
+    for chi in range(peaks.shape[0]):
+        ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
+        clip = clip | ((peaks[chi] > thresh).to(_I32) << ch_bit)
+    return st._replace(clip_flags=clip), peaks
+
+
 def _segment_layout(static: StaticChain, x):
     """Resolve the packet schedule.  Uniform chains take x as [Npkt, 2, T,
     B]; scheduled chains (``static.schedule``, e.g. the 44.1 kHz 44/45
@@ -164,23 +161,6 @@ def _segment_layout(static: StaticChain, x):
     Npkt, _, T, B = x.shape
     sched = np.full(Npkt, T, np.int64)
     return x.transpose(0, 1).reshape(2, Npkt * T, B), sched, Npkt, Npkt * T
-
-
-def _ramp_indices(sched):
-    """(t_within_packet, packet) index pair for every flat sample."""
-    tt = np.concatenate([np.arange(t, dtype=np.int64) for t in sched])
-    kk = np.repeat(np.arange(len(sched), dtype=np.int64), sched)
-    return tt, kk
-
-
-def _pattern_len(sched: np.ndarray):
-    """Smallest p with sched = tile(sched[:p]): 1 for uniform packets, 10
-    for the 44.1 kHz cadence, None when there is no period."""
-    n = len(sched)
-    for p in range(1, n // 2 + 1):
-        if n % p == 0 and bool((sched == np.tile(sched[:p], n // p)).all()):
-            return p
-    return None
 
 
 def _lev_gain_db(p, rms_sq, sched, gdb0):
@@ -212,16 +192,6 @@ def _lev_gain_db(p, rms_sq, sched, gdb0):
     pow_att = fmath.pow_f32(a_att, counts)
     pow_rel = fmath.pow_f32(a_rel, counts)
     return lev_smooth(gc, pow_att, pow_rel, gdb0)
-
-
-def _pkts_to_flat(arr, sched, Ttot):
-    """[Npkt, Tmax, ...] -> [Ttot, ...], dropping each packet's padded tail
-    rows: a reshape for uniform packets, else one static index gather."""
-    if _pattern_len(sched) == 1:
-        return arr.reshape((Ttot,) + arr.shape[2:])
-    tt, kk = _ramp_indices(sched)
-    idx = torch.from_numpy(kk * arr.shape[1] + tt).to(arr.device)
-    return arr.reshape((-1,) + arr.shape[2:]).index_select(0, idx)
 
 
 def _per_packet(vals, sched, Ttot):
@@ -353,34 +323,38 @@ def _s24_wire_pdm(static: StaticChain, st, outputs, bufs, convert, sub,
     return st
 
 
-def _f32_lane(static: StaticChain, p) -> bool:
-    """Whether scan A runs per lane: any leaf it reads carries a stream
-    axis (the master EQ rows, the loudness rows or bypass flags, the
-    leveller's RMS alpha), as ``_master_lane`` decides on the Q28 chain."""
-    return (p.eq_f32.dim() == 4
-            or (static.loudness_on and (p.loud_sva.dim() == 3
+def _master_lane(static: StaticChain, p) -> bool:
+    """Whether scan A runs per lane (the cascade kernels' per-lane
+    coefficients): any leaf it reads carries a stream axis.  Those are the
+    master EQ rows (``eq_f32`` or ``eq_q28``), the loudness rows
+    (``loud_sva`` or ``loud_qbq``) or bypass flags, and the leveller's RMS
+    alpha.  The JAX package decides the Q28 chain's from ``eq_q28`` alone;
+    configs that share their EQ still differ per lane in the loudness row
+    and its bypass flags (another host volume) or in the leveller's RMS
+    alpha (another RMS time)."""
+    eq, loud = ((p.eq_f32, p.loud_sva) if static.is_float
+                else (p.eq_q28, p.loud_qbq))
+    return (eq.dim() == 4
+            or (static.loudness_on and (loud.dim() == 3
                                         or p.loud_bypass.dim() == 2))
             or (static.leveller_on and p.lev.dim() == 2))
 
 
-def _f32_cascade(p, st, bands, nb, lane, B, dev, prefix=(), sprefix=()):
-    """One float cascade of ``bands``, padded to ``nb`` bands with SKIP
-    rows (a pass-through) and zero states, after the ``prefix`` rows
-    ([11] or [11, B]) and their ``sprefix`` state rows: (cf [nr, 11] or
-    [nr, 11, B] with ``lane``, its state rows, its kinds)."""
+def _f32_rows(p, bands, nb, lane, B, dev, prefix):
+    """One float cascade's coefficient rows: the ``prefix`` rows ([11] or
+    [11, B]), its ``bands``' and SKIP rows (a pass-through) up to ``nb``
+    bands.  Returns (cf [nr, 11], or [nr, 11, B] with ``lane``; its
+    kinds)."""
     pad = nb - len(bands)
     rows = list(prefix) + [p.eq_f32[c, band] for c, band, _k in bands]
     rows += [torch.zeros(11, dtype=_F32, device=dev)] * pad
-    srows = list(sprefix) + [v for pair in _gather_states(st, bands)
-                             for v in pair]
-    srows += [torch.zeros((B,), dtype=_F32, device=dev)] * (2 * pad)
     if lane:
         rows = [r.unsqueeze(-1).expand(11, B) if r.dim() == 1 else r
                 for r in rows]
     cf = (torch.stack(rows) if rows else
           torch.zeros((0, 11, B) if lane else (0, 11), dtype=_F32,
                       device=dev))
-    return cf, srows, tuple(k for _c, _b, k in bands) + (SKIP,) * pad
+    return cf, tuple(k for _c, _b, k in bands) + (SKIP,) * pad
 
 
 def _f32_master(static: StaticChain, p, st, bl, br, master_bands, sched):
@@ -392,26 +366,15 @@ def _f32_master(static: StaticChain, p, st, bl, br, master_bands, sched):
     dev = bl.device
     B = bl.shape[-1]
     has_loud, has_env = static.loudness_on, static.leveller_on
-    lane = _f32_lane(static, p)
-    n_loud = 2 if has_loud else 0
-    mb = [[t for t in master_bands if t[0] == ch] for ch in range(2)]
-    nb = max(len(mb[0]), len(mb[1]))
+    lane = _master_lane(static, p)
+    lay = layout.master_cascades(static, master_bands)
     loud = ()
     if has_loud:               # [2, 6(, B)] rows padded to the 11 columns
         pad = torch.zeros((2, 5) + tuple(p.loud_sva.shape[2:]), dtype=_F32,
                           device=dev)
         loud = tuple(torch.cat([p.loud_sva, pad], dim=1))
-    cf_ch, s_ch, kinds = [], [], []
-    for ch in range(2):
-        sprefix = ((st.loud_a[ch, 0], st.loud_b[ch, 0], st.loud_a[ch, 1],
-                    st.loud_b[ch, 1]) if has_loud else ())
-        cf, srows, kd = _f32_cascade(p, st, mb[ch], nb, lane, B, dev, loud,
-                                     sprefix)
-        if has_env:
-            srows.append(st.lev_env[ch])
-        cf_ch.append(cf)
-        s_ch.append(torch.stack(srows))
-        kinds.append(kd)
+    cf, kinds = zip(*(_f32_rows(p, bands, lay.nb, lane, B, dev, loud)
+                      for bands in lay.bands))
     zero = torch.zeros((), dtype=_F32, device=dev)
     vals = ([p.loud_bypass[0].to(_F32), p.loud_bypass[1].to(_F32)]
             if has_loud else [zero, zero])
@@ -419,18 +382,11 @@ def _f32_master(static: StaticChain, p, st, bl, br, master_bands, sched):
     # the same scalars for L and R: [4], or [4, B] per lane
     scal = torch.stack([v.expand(B) if lane else v for v in vals])
     y, env, sF = f32_cascades(
-        torch.stack([bl, br]), torch.stack(cf_ch), torch.stack(s_ch),
+        torch.stack([bl, br]), torch.stack(cf), layout.states(lay, st),
         scal.expand(2, *scal.shape).contiguous(), kinds=kinds,
         has_loud=has_loud, has_env=has_env, tc=int(sched[0]),
         sched=static.schedule or None)
-    if has_loud:
-        st = st._replace(loud_a=sF[:, [0, 2]], loud_b=sF[:, [1, 3]])
-    finals = []
-    for t in master_bands:
-        r = 2 * n_loud + 2 * mb[t[0]].index(t)
-        finals.append((sF[t[0], r], sF[t[0], r + 1]))
-    st = _scatter_states(st, master_bands, finals)
-    return st, y[0], y[1], env
+    return layout.scatter(lay, st, sF), y[0], y[1], env
 
 
 def _f32_outputs(static: StaticChain, p, st, bl, br, out_bands, sched):
@@ -465,35 +421,23 @@ def _f32_outputs(static: StaticChain, p, st, bl, br, out_bands, sched):
 def _f32_outeq(static: StaticChain, p, st, bufs, out_bands, sched):
     """Scan B as one float cascade call over the live outputs' planes of
     ``bufs``, replaced in place by their outputs.  Returns st'."""
-    live = sorted({ch - C.CH_OUT_1 for ch, _b, _k in out_bands})
-    per_o = {o: [t for t in out_bands if t[0] - C.CH_OUT_1 == o]
-             for o in live}
-    nb = max(len(v) for v in per_o.values())
+    lay = layout.output_cascades(out_bands)
     lane = p.eq_f32.dim() == 4
-    B, dev = bufs[live[0]].shape[-1], bufs[live[0]].device
-    cf_g, s_g, kinds = [], [], []
-    for o in live:
-        cf, srows, kd = _f32_cascade(p, st, per_o[o], nb, lane, B, dev)
-        cf_g.append(cf)
-        s_g.append(torch.stack(srows))
-        kinds.append(kd)
-    x = torch.stack([bufs[o] for o in live])
-    for o in live:                 # the stack holds them: free the planes
+    B, dev = bufs[lay.keys[0]].shape[-1], bufs[lay.keys[0]].device
+    cf, kinds = zip(*(_f32_rows(p, bands, lay.nb, lane, B, dev, ())
+                      for bands in lay.bands))
+    x = torch.stack([bufs[o] for o in lay.keys])
+    for o in lay.keys:             # the stack holds them: free the planes
         bufs[o] = None
     y, _, sF = f32_cascades(
-        x, torch.stack(cf_g), torch.stack(s_g),
-        torch.zeros((len(live), 4, B) if lane else (len(live), 4),
+        x, torch.stack(cf), layout.states(lay, st),
+        torch.zeros((len(lay.keys), 4, B) if lane else (len(lay.keys), 4),
                     dtype=_F32, device=dev), kinds=kinds, tc=int(sched[0]),
         sched=static.schedule or None)
     del x
-    finals = []
-    for t in out_bands:
-        gi = live.index(t[0] - C.CH_OUT_1)
-        r = 2 * per_o[live[gi]].index(t)
-        finals.append((sF[gi, r], sF[gi, r + 1]))
-    st = _scatter_states(st, out_bands, finals)
-    for gi, o in enumerate(live):
-        bufs[o] = y[gi]
+    st = layout.scatter(lay, st, sF)
+    for k, o in enumerate(lay.keys):
+        bufs[o] = y[k]
     return st
 
 
@@ -522,8 +466,6 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     input state is not modified.  With a schedule, emit='full' outputs are
     time-flat ([K, Ttot, B])."""
     with span("dspi.segment"):
-        from . import mxu
-
         if static.mxu and blocks is None:
             raise ValueError("the block-matmul lowering needs its block "
                              "matrices (blocks=mxu.build_blocks(...))")
@@ -531,7 +473,6 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
         B = x2.shape[-1]
         dev = x.device
         nout = static.n_outputs
-        ns2 = static.n_spdif * 2
         master_bands, out_bands = _chain_structure(static)
         if preset_mute is None:
             preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
@@ -601,16 +542,7 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
                         g = g + step
                     gains = _pkts_to_flat(gains, sched, Ttot)
 
-                if static.leveller_lookahead:
-                    # time-ordered lookahead ring: the delayed stream is a
-                    # window of concat(ring, segment)
-                    comb_l = torch.cat([st.lev_la[0], bl], dim=0)
-                    comb_r = torch.cat([st.lev_la[1], br], dim=0)
-                    out_l, out_r = comb_l[:Ttot], comb_r[:Ttot]
-                    st = st._replace(lev_la=torch.stack([comb_l[Ttot:],
-                                                         comb_r[Ttot:]]))
-                else:
-                    out_l, out_r = bl, br
+                st, out_l, out_r = _lookahead(static, st, bl, br, Ttot)
 
                 peak = torch.maximum(out_l.abs(), out_r.abs())
                 max_g = fmath.det_div(
@@ -660,31 +592,9 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
                 bufs[o] = torch.where(gain == 0.0, torch.zeros_like(y),
                                       y * gain).reshape(Ttot, B)
 
-            # delay lines (usb_audio.c:897-911)
-            if static.delayed_outputs:
-                D = static.delay_ring
-                rows = []
-                for k, o in enumerate(static.delayed_outputs):
-                    bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
-                                                   p.delay_samples[k], Ttot, D)
-                    rows.append(ring_k)
-                st = st._replace(delay=torch.stack(rows))
-
-            # peaks / clip flags (sticky over the segment == sticky per packet)
-            peaks = [peak_ml, peak_mr]
-            for o in range(ns2):
-                peaks.append(bufs[o].abs().amax(dim=0))
-            if static.output_enabled[nout - 1]:
-                peaks.append(bufs[nout - 1].abs().amax(dim=0))
-            else:
-                peaks.append(torch.zeros_like(peak_ml))
-            peaks = torch.stack(peaks)                       # [nch', B]
-            clip = st.clip_flags
-            for chi in range(peaks.shape[0]):
-                ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
-                clip = clip | ((peaks[chi] > C.CLIP_THRESH_F).to(torch.int32)
-                               << ch_bit)
-            st = st._replace(clip_flags=clip)
+            st = _delay_lines(static, p, st, bufs, Ttot)
+            st, peaks = _peaks_clip(static, st, peak_ml, peak_mr, bufs,
+                                    C.CLIP_THRESH_F)
 
         with span("dspi.wire"):
             outputs = {}
@@ -710,46 +620,21 @@ _IDENT_Q28 = (C.Q28_ONE, 0, 0, 0, 0)        # an exact pass-through band row
 _INV_Q28 = 2.0 ** -28
 
 
-def _lane_rows(rows, B):
-    """Coefficient rows [n, 5], or [n, 5, B] per lane, all in the per-lane
-    form: a config-uniform row (the identity, a collapsed leaf of
+def _q28_rows(p, bands, nb, lane, B, dev, prefix):
+    """One Q28 cascade's coefficient rows: the ``prefix`` rows ([n, 5] or
+    [n, 5, B]), its ``bands``' and exact pass-through rows up to ``nb``
+    bands.  Returns cf [nr, 5], or [nr, 5, B] with ``lane``, where a
+    config-uniform row (the identity, a collapsed leaf of
     ``build_params_multi``) broadcasts over the lanes."""
-    return [r.unsqueeze(-1).expand(*r.shape, B) if r.dim() == 2 else r
-            for r in rows]
-
-
-def _band_rows(p, st, bands, nb, lane):
-    """Coefficient rows and (s1, s2) state rows of one cascade's ``bands``,
-    padded to ``nb`` bands with exact pass-through rows and zero states;
-    with ``lane``, every row in the per-lane [n, 5, B] form."""
-    B = st.eq_a.shape[-1]
-    dev = st.eq_a.device
-    pad = nb - len(bands)
-    rows = [p.eq_q28[c, band][None] for c, band, _k in bands]
-    rows += [torch.tensor([_IDENT_Q28], dtype=_I32, device=dev)] * pad
-    srows = [v for c, band, _k in bands
-             for v in (st.eq_a[c, band], st.eq_b[c, band])]
-    srows += [torch.zeros((B,), dtype=_I32, device=dev)] * (2 * pad)
-    return (_lane_rows(rows, B) if lane else rows), srows
-
-
-def _cascade_cf(rows, lane, B, dev):
-    """One cascade's rows -> cf [nr, 5] (or [nr, 5, B] with ``lane``)."""
+    rows = list(prefix) + [p.eq_q28[c, band][None] for c, band, _k in bands]
+    rows += [torch.tensor([_IDENT_Q28], dtype=_I32, device=dev)] * (
+        nb - len(bands))
+    if lane:
+        rows = [r.unsqueeze(-1).expand(*r.shape, B) if r.dim() == 2 else r
+                for r in rows]
     if rows:
         return torch.cat(rows)
     return torch.zeros((0, 5, B) if lane else (0, 5), dtype=_I32, device=dev)
-
-
-def _master_lane(static: StaticChain, p) -> bool:
-    """Whether scan A runs the per-lane (lane_cf) cascade: any leaf it
-    reads carries a stream axis.  The JAX package decides from ``eq_q28``
-    alone; configs that share their EQ still differ per lane in the
-    loudness row and its bypass flags (another host volume) or in the
-    leveller's RMS alpha (another RMS time)."""
-    return (p.eq_q28.dim() == 4
-            or (static.loudness_on and (p.loud_qbq.dim() == 3
-                                        or p.loud_bypass.dim() == 2))
-            or (static.leveller_on and p.lev.dim() == 2))
 
 
 def _q28_master(static: StaticChain, p, st, bl, br, master_bands,
@@ -763,21 +648,10 @@ def _q28_master(static: StaticChain, p, st, bl, br, master_bands,
     B = bl.shape[-1]
     has_loud, has_env = static.loudness_on, static.leveller_on
     lane = _master_lane(static, p)
-    n_loud = 2 if has_loud else 0
-    mb = [[t for t in master_bands if t[0] == ch] for ch in range(2)]
-    nb = max(len(mb[0]), len(mb[1]))
-    cf_ch, s_ch = [], []
-    for ch in range(2):
-        rows, srows = _band_rows(p, st, mb[ch], nb, lane)
-        if has_loud:
-            rows = (_lane_rows([p.loud_qbq], B) if lane
-                    else [p.loud_qbq]) + rows
-            srows = [st.loud_a[ch, 0], st.loud_b[ch, 0],
-                     st.loud_a[ch, 1], st.loud_b[ch, 1]] + srows
-        if has_env:
-            srows.append(st.lev_env[ch])
-        cf_ch.append(_cascade_cf(rows, lane, B, dev))
-        s_ch.append(torch.stack(srows))
+    lay = layout.master_cascades(static, master_bands)
+    loud = [p.loud_qbq] if has_loud else []
+    cf = [_q28_rows(p, bands, lay.nb, lane, B, dev, loud)
+          for bands in lay.bands]
     zero = torch.zeros((), dtype=_I32, device=dev)
     vals = ([p.loud_bypass[0], p.loud_bypass[1]] if has_loud
             else [zero, zero])
@@ -786,49 +660,31 @@ def _q28_master(static: StaticChain, p, st, bl, br, master_bands,
     scal = torch.stack([v.to(_I32).expand(B) if lane else v.to(_I32)
                         for v in vals])
     y, env, sF = q28_cascades(
-        torch.stack([bl, br]), torch.stack(cf_ch), torch.stack(s_ch),
-        scal.expand(2, *scal.shape).contiguous(), nb=nb, has_loud=has_loud,
-        has_env=has_env, tc=int(sched[0]),
+        torch.stack([bl, br]), torch.stack(cf), layout.states(lay, st),
+        scal.expand(2, *scal.shape).contiguous(), nb=lay.nb,
+        has_loud=has_loud, has_env=has_env, tc=int(sched[0]),
         sched=static.schedule or None)
-    if has_loud:
-        st = st._replace(loud_a=sF[:, [0, 2]], loud_b=sF[:, [1, 3]])
-    finals = []
-    for t in master_bands:
-        r = 2 * n_loud + 2 * mb[t[0]].index(t)
-        finals.append((sF[t[0], r], sF[t[0], r + 1]))
-    st = _scatter_states(st, master_bands, finals)
-    return st, y[0], y[1], env
+    return layout.scatter(lay, st, sF), y[0], y[1], env
 
 
 def _q28_outeq(static: StaticChain, p, st, bufs, out_bands, sched):
     """Scan B as one cascade call over the live outputs, as the JAX
     package's ``_q28_kernel_outeq`` builds it; per-lane when the EQ
     coefficients are."""
-    live = sorted({ch - C.CH_OUT_1 for ch, _b, _k in out_bands})
-    per_o = {o: [t for t in out_bands if t[0] - C.CH_OUT_1 == o]
-             for o in live}
-    nb = max(len(v) for v in per_o.values())
+    lay = layout.output_cascades(out_bands)
     lane = p.eq_q28.dim() == 4
-    B = bufs[live[0]].shape[-1]
-    cf_g, s_g = [], []
-    for o in live:
-        rows, srows = _band_rows(p, st, per_o[o], nb, lane)
-        cf_g.append(torch.cat(rows))
-        s_g.append(torch.stack(srows))
-    scal = torch.zeros((len(live), 4, B) if lane else (len(live), 4),
-                       dtype=_I32, device=bufs[live[0]].device)
+    B, dev = bufs[lay.keys[0]].shape[-1], bufs[lay.keys[0]].device
+    cf = [_q28_rows(p, bands, lay.nb, lane, B, dev, ())
+          for bands in lay.bands]
+    scal = torch.zeros((len(lay.keys), 4, B) if lane else (len(lay.keys), 4),
+                       dtype=_I32, device=dev)
     y, _, sF = q28_cascades(
-        torch.stack([bufs[o] for o in live]), torch.stack(cf_g),
-        torch.stack(s_g), scal, nb=nb, tc=int(sched[0]),
+        torch.stack([bufs[o] for o in lay.keys]), torch.stack(cf),
+        layout.states(lay, st), scal, nb=lay.nb, tc=int(sched[0]),
         sched=static.schedule or None)
-    finals = []
-    for t in out_bands:
-        gi = live.index(t[0] - C.CH_OUT_1)
-        r = 2 * per_o[live[gi]].index(t)
-        finals.append((sF[gi, r], sF[gi, r + 1]))
-    st = _scatter_states(st, out_bands, finals)
-    for gi, o in enumerate(live):
-        bufs[o] = y[gi]
+    st = layout.scatter(lay, st, sF)
+    for k, o in enumerate(lay.keys):
+        bufs[o] = y[k]
     return st, bufs
 
 
@@ -858,7 +714,6 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
     with span("dspi.segment"):
         x2, sched, Npkt, Ttot = _segment_layout(static, x)
         nout = static.n_outputs
-        ns2 = static.n_spdif * 2
         dev = x.device
         master_bands, out_bands = _chain_structure(static)
         if preset_mute is None:
@@ -933,16 +788,7 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
                         gains = torch.where(one, g_cur_p[:, None, :], gains)
                     gains = _pkts_to_flat(gains, sched, Ttot)
 
-                if static.leveller_lookahead:
-                    # time-ordered lookahead ring: the delayed stream is a
-                    # window of concat(ring, segment)
-                    comb_l = torch.cat([st.lev_la[0], bl], dim=0)
-                    comb_r = torch.cat([st.lev_la[1], br], dim=0)
-                    out_l, out_r = comb_l[:Ttot], comb_r[:Ttot]
-                    st = st._replace(lev_la=torch.stack([comb_l[Ttot:],
-                                                         comb_r[Ttot:]]))
-                else:
-                    out_l, out_r = bl, br
+                st, out_l, out_r = _lookahead(static, st, bl, br, Ttot)
                 del bl, br
 
                 # limiter (leveller.c:369-379): float peak, Q28 gain cap
@@ -997,33 +843,12 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
                 bufs[o] = q15_gain(bufs[o].contiguous(), gains[o], ends)
             del gains, ends
 
-            # delay lines (usb_audio.c:1213-1227)
-            if static.delayed_outputs:
-                D = static.delay_ring
-                rows = []
-                for k, o in enumerate(static.delayed_outputs):
-                    bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
-                                                   p.delay_samples[k], Ttot, D)
-                    rows.append(ring_k)
-                st = st._replace(delay=torch.stack(rows))
-
-            # peaks / clip flags (Q28: u16 = peak >> 13, usb_audio.c:1239)
-            peaks = [peak_ml, peak_mr]
-            for o in range(ns2):
-                peaks.append(bufs[o].abs().amax(dim=0))
-            if static.output_enabled[nout - 1]:
-                peaks.append(bufs[nout - 1].abs().amax(dim=0))
-            else:
-                peaks.append(torch.zeros_like(peak_ml))
-            peaks = torch.stack(peaks)
-            clip = st.clip_flags
-            for chi in range(peaks.shape[0]):
-                ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
-                clip = clip | ((peaks[chi] > C.CLIP_THRESH_Q28).to(_I32)
-                               << ch_bit)
-            st = st._replace(clip_flags=clip)
+            st = _delay_lines(static, p, st, bufs, Ttot)
+            st, peaks = _peaks_clip(static, st, peak_ml, peak_mr, bufs,
+                                    C.CLIP_THRESH_Q28)
 
         with span("dspi.wire"):
+            # peak u16 conversion (usb_audio.c:1239): peak >> 13
             outputs = {"peaks": (peaks >> 13) & 0xFFFF}
             # S/PDIF conversion (usb_audio.c:1244-1257)
             st = _s24_wire_pdm(static, st, outputs, bufs, q28_to_s24,

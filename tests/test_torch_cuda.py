@@ -16,8 +16,8 @@ from dspi_tpu_torch.kernels.eq_cuda import q28_cascades
 from dspi_tpu_torch.kernels.eq_f32 import f32_cascades_plain
 from dspi_tpu_torch.kernels.eq_f32_cuda import f32_cascades
 from dspi_tpu_torch.kernels.pdm import pdm_words_plain
-from dspi_tpu_torch.kernels.xf_cuda import xf_q28, xf_q28_plain
-from dspi_tpu_torch.kernels.xf_f32_cuda import xf_f32, xf_f32_plain
+from dspi_tpu_torch.kernels.xf_cuda import (xf_f32, xf_f32_plain, xf_q28,
+                                             xf_q28_plain)
 
 
 @pytest.mark.cuda

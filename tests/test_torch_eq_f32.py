@@ -1,6 +1,6 @@
 """The float scan lowering's recurrences, plain versions: the port's float
 cascades (``kernels/eq_f32.py``) and float crossfeed
-(``kernels/xf_f32_cuda.py:xf_f32_plain``) against the JAX package's own
+(``kernels/xf_cuda.py:xf_f32_plain``) against the JAX package's own
 step code (``chain/pipeline.py`` ``_band_step_f32``, ``_svf_general_f32``
 and the envelope and crossfeed math of its scan A and ``xf_body``), run
 eagerly op by op on the CPU, so that no operation contracts into a fused
@@ -27,7 +27,7 @@ from dspi_tpu.chain import pipeline as jp
 from dspi_tpu_torch.kernels import eq_f32
 from dspi_tpu_torch.kernels.eq_f32 import band_step_f32, svf_general_f32
 from dspi_tpu_torch.kernels.eq_f32_cuda import f32_cascades
-from dspi_tpu_torch.kernels.xf_f32_cuda import xf_f32, xf_f32_plain
+from dspi_tpu_torch.kernels.xf_cuda import xf_f32, xf_f32_plain
 
 from test_torch_cuda import f32_args, f32_rows
 

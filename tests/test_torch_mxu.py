@@ -20,7 +20,7 @@ from dspi_tpu.chain import pack as jpack
 from dspi_tpu.chain.pipeline import _chain_structure as j_structure
 from dspi_tpu.params.design import derive as jderive
 from dspi_tpu_torch.chain import mxu, pack
-from dspi_tpu_torch.chain.pipeline import _chain_structure
+from dspi_tpu_torch.chain.layout import _chain_structure
 
 from util import rich_config
 

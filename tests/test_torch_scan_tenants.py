@@ -124,7 +124,7 @@ def test_the_flat_layout_and_per_lane_kernels_are_taken(seed, monkeypatch):
     ids = _ids(seed, True)
     srv = _server(ids)
     assert srv.grouped.layout == "flat" and srv.grouped.blocks is None
-    assert pipeline._f32_lane(srv.static, srv.params)
+    assert pipeline._master_lane(srv.static, srv.params)
     calls = []
     cascades, xf = pipeline.f32_cascades, pipeline.xf_f32
 
