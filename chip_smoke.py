@@ -43,11 +43,14 @@ Phases (each prints one line; any failure exits non-zero):
      packet-end flush firing, and the master call's at full length (6144
      samples); the float crossfeed over three chained segments, the last
      with per-lane coefficients.  A mismatch prints the largest gap and
-     fails.  Then the leveller's packet recurrence (lev.cu, both chains)
-     vs its plain version on the CPU, bit for bit, at [128, 16384] and
-     [178, 17408] with uniform and per-lane alphas and edge inputs, and
-     at [128, 16384] timed beside its bound and the plain version's time
-     on the card.  Then the Q28 chain's Q15 products (q15.cu: the matrix
+     fails.  Then the leveller's two kernels (lev.cu, both chains) vs
+     their plain versions, bit for bit, on tests/lev_cases.py's inputs:
+     lev_gain at [128, 16384], per lane at [128, 17408] and on the 44/45
+     schedule at [178, 17408] against the CPU; lev_apply at [6144,
+     16384] and per lane at [6144, 17408] against the plain version on
+     the card, and its edge lanes against the CPU; each timed beside its
+     bound (bytes, and its loop's instructions from this build's SASS)
+     and the plain version's time on the card.  Then the Q28 chain's Q15 products (q15.cu: the matrix
      mix of 5 outputs, all enabled as on the Q28 main paths and
      with one disabled, and the per-packet output gain)
      vs their plain versions on the card, bit for bit, with edge samples
@@ -234,9 +237,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # output instances), one thread a stream, a sample an iteration; nvcc with
 # build.NVCC_FLAGS for sm_90a, read with compare_kernels.py.  The new
 # builds' own counts, a stream-sample, are printed beside them.
-# every main path runs the leveller: its packet recurrence (lev.cu) and
-# the PDM modulator launch once a segment each
-LEV_PDM = {"lev_smooth": 1, "pdm": 1}
+# every main path runs the leveller: its two kernels (lev.cu, the packet
+# gains and the sample pass) and the PDM modulator launch once a segment
+# each
+LEV_PDM = {"lev_gain": 1, "lev_apply": 1, "pdm": 1}
 # the Q28 chain's Q15 products: the matrix mix once a segment, an output
 # gain once a live output (the RP2040 headline chain's 5)
 Q15 = {"q15_mix": 1, "q15_gain": 5}
@@ -248,8 +252,6 @@ ISSUE_PER_SM_CLOCK = 128
 # modulator's multiplies on the enabled, unfaded path are all by
 # constants, which shifts and adds can do, so it needs none.
 MUL_PER_BAND, MUL_PER_ENV, MUL_XF, MUL_PDM = 15, 9, 24, 0
-# the leveller's recurrence: two 24 x 24-bit mantissa products a packet
-MUL_LEV = 2
 PDM_OPS = {"alu_only": 851.0, "arith": 1744.0}
 XF_OPS = {"alu_only": 25.5, "arith": 74.5}
 EQ_LANE_OPS = {(10, True, True): {"alu_only": 109.0, "arith": 361.0},
@@ -1112,63 +1114,193 @@ def per_segment(n: int) -> dict:
     return {k: n * v for k, v in LEV_PDM.items()}
 
 
-def phase_lev(dev) -> dict:
-    """The leveller's packet recurrence (lev.cu) vs its plain version on
-    the CPU, bit for bit, at the cells' [128, 16384] and the grouped 44.1
-    kHz [178, 17408], uniform [Npkt, 1] and per-lane [Npkt, B] alphas, on
-    tests/lev_cases.py's inputs (edge values among them); then at [128,
-    16384] with uniform alphas (the render cells' call) the kernel timed
-    with CUDA events beside its bound, and the plain version on the card."""
+def _sass_fn(lib: str, *parts: str) -> str:
+    """The mangled name of the kernel in ``lib``'s SASS whose name holds
+    every one of ``parts``."""
+    import re
+
+    for name in re.findall(r"Function : (\S+)", _sass(lib)):
+        if all(p in name for p in parts):
+            return name
+    fail(f"no kernel with {parts} in {lib}'s SASS")
+
+
+def _lev_case(chain, npkt, B, kind, lane, seed, dev):
+    """``tests/lev_cases.phase_case``'s inputs on ``dev``, Ttot and the
+    packet ends (None for uniform packets)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    from lev_cases import case
+    from lev_cases import phase_case
 
-    from dspi_tpu_torch.kernels import LAUNCHES
-    from dspi_tpu_torch.kernels.lev_cuda import lev_smooth, lev_smooth_plain
+    c = phase_case(chain == "q28", npkt, B, kind, lane, seed)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in c.items() if k != "sched"}
+    ends = None if kind == "uniform" else torch.from_numpy(
+        np.cumsum(c["sched"]).astype(np.int32)).to(dev)
+    return t, int(c["sched"].sum()), ends
 
-    for npkt, B, lane, rate in ((128, STREAMS, False, RATE),
-                                (128, STREAMS, True, RATE),
-                                (178, 17408, False, 44100.0),
-                                (178, 17408, True, 44100.0)):
-        args = [torch.from_numpy(v) for v in case(npkt, B, lane, rate,
-                                                   seed=npkt * B)]
-        want = lev_smooth_plain(*args)
-        n0 = LAUNCHES["lev_smooth"]
-        got = lev_smooth(*[a.to(dev) for a in args])
-        torch.cuda.synchronize()
-        if LAUNCHES["lev_smooth"] != n0 + 1:
-            fail("lev_smooth did not count one launch")
-        if not torch.equal(got.cpu().view(torch.int32),
-                           want.view(torch.int32)):
-            fail(f"leveller kernel != plain version at [{npkt}, {B}] "
-                 f"(per lane {lane}): largest gap "
-                 f"{max_gap(got.cpu(), want):.3e}")
-    npkt, B = PACKETS, STREAMS
-    args = [torch.from_numpy(v).to(dev) for v in case(npkt, B, False, RATE,
-                                                       seed=5)]
-    kern_ms = cuda_ms(lambda: lev_smooth(*args), 50)
-    plain_ms = cuda_ms(lambda: lev_smooth_plain(*args), 3)
+
+def _lev_ops(lib_parts, op, per) -> dict:
+    """ALU-only and issued instructions an iteration (a lane-packet or a
+    lane-sample) of the loop of the leveller kernel whose mangled name
+    holds ``lib_parts``, from this build's SASS."""
     from dspi_tpu_torch.kernels import build
 
-    c = build.per_sample(build.loop_counts(_sass("lev"), "lev_smooth"),
-                         "stg", 1)
-    ops = {"alu_only": c["alu_only"], "arith": c["arith"]}
-    nbytes = 4 * (2 * npkt * B + 2 * args[1].numel() + B)
-    bound_ms, by, text = bound(work(ops, MUL_LEV, npkt * B), nbytes)
-    print(f"lev_smooth: kernel == plain bit for bit at [128, {STREAMS}] and "
-          f"[178, 17408], uniform and per-lane alphas; at [{npkt}, {B}]: "
-          f"kernel {kern_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; {text}; "
-          f"a lane-packet {c['arith']:.1f} instructions, "
-          f"{c['alu_only']:.1f} ALU-only), plain version on the card "
-          f"{plain_ms:.1f} ms", flush=True)
-    return {"name": "lev_smooth", "route": "cuda",
-            "source": "dspi_tpu_torch/kernels/csrc/lev.cu",
-            "replaces": "dspi_tpu/chain/pipeline.py:518-527 and :992-999 "
-                        "(lev_step, a lax.scan, no TPU kernel)",
-            "max_abs_err": 0.0, "plain_ms": plain_ms, "library_ms": None,
-            "equal_to_plain": True, "plain_shape": [npkt, B],
-            "kernel_ms_at_plain_shape": kern_ms, "ms": kern_ms,
-            "bound_ms": bound_ms, "bound_by": by,
-            "ops_per_lane_packet": ops}
+    c = build.per_sample(build.loop_counts(_sass("lev"),
+                                           _sass_fn("lev", *lib_parts)),
+                         op, per)
+    return {"alu_only": c["alu_only"], "arith": c["arith"]}
+
+
+def _lev_gain_ops(fmt, sched) -> dict:
+    """``lev_gain``'s instructions a lane-packet on the path it executes.
+    Uniform packets (``sched`` None): the uniform instance's loop, which
+    holds no alpha^n (computed once, before it).  A schedule: that loop,
+    plus the schedule instance's extra instructions (the two pow_f32 of
+    alpha^n and the packet's length from its ends) on the share of
+    packets whose length differs from the last one's, where alpha^n is
+    computed again.  That counts the ends' reading on those packets only,
+    so the bound is a little low, never high."""
+    ops = _lev_ops(("lev_gain", f"{fmt}ELb0E"), "stg", 1)
+    if sched is None:
+        return ops
+    extra = _lev_ops(("lev_gain", f"{fmt}ELb1E"), "stg", 1)
+    share = float(np.mean(np.diff(sched, prepend=-1) != 0))
+    return {k: ops[k] + (extra[k] - ops[k]) * share for k in ops}
+
+
+def _lev_bound(ops, n, nbytes):
+    """(bound ms, by, text, ``ops``) of a leveller kernel over ``n`` loop
+    iterations of ``ops`` instructions each, and ``nbytes``."""
+    return (*bound(work(ops, 0, n), nbytes), ops)
+
+
+def _same(got, want, what):
+    if (got is None) != (want is None) or want is not None and not \
+            torch.equal(got.cpu().view(torch.int32),
+                        want.cpu().view(torch.int32)):
+        fail(f"{what}: kernel != plain version"
+             + ("" if got is None or want is None else
+                f" (largest gap {max_gap(got.cpu(), want.cpu()):.3e})"))
+
+
+def phase_lev(dev) -> list:
+    """The leveller's block phase (lev.cu), both chains, on
+    tests/lev_cases.py's inputs (envelopes at 0, denormal, under the gate
+    and across the knee; gains above unity; samples at the limiter's
+    ceiling): ``lev_gain`` against its plain version on the CPU at the
+    cells' [128, 16384], per lane at [128, 17408] (the tenants cells) and
+    on the 44/45 schedule at [178, 17408]; ``lev_apply`` with the
+    lookahead ring against its plain version on the card at [6144,
+    16384] and per lane at [6144, 17408], and on the CPU over its first
+    and last 64 lanes; each timed with CUDA events beside its bound and
+    its plain version's time on the card.  Returns the two kernels'
+    rows."""
+    from dspi_tpu_torch.kernels import LAUNCHES
+    from dspi_tpu_torch.kernels.lev_cuda import (lev_apply, lev_apply_plain,
+                                                 lev_gain, lev_gain_plain)
+
+    gain_calls, apply_calls = [], []
+    for chain in ("float", "q28"):
+        fmt = "5Float" if chain == "float" else "3Q28"
+        for npkt, B, kind, lane in ((PACKETS, STREAMS, "uniform", False),
+                                    (PACKETS, 17408, "uniform", True),
+                                    (178, 17408, "44k1", True)):
+            t, ttot, ends = _lev_case(chain, npkt, B, kind, lane,
+                                      seed=npkt * B + len(gain_calls), dev=dev)
+            args = [t[k] for k in ("env_l", "env_r", "lev", "gdb0", "g0")]
+            want = lev_gain_plain(*[a.cpu() for a in args], ttot,
+                                  None if ends is None else ends.cpu())
+            n0 = LAUNCHES["lev_gain"]
+            got = lev_gain(*args, ttot, ends)
+            torch.cuda.synchronize()
+            if LAUNCHES["lev_gain"] != n0 + 1:
+                fail("lev_gain did not count one launch")
+            for name, g, w in zip(("g_cur", "lev_gain_db", "lev_gain",
+                                   "lev_gain_prev"), got, want):
+                _same(g, w, f"lev_gain {chain} [{npkt}, {B}] {name}")
+            ms = cuda_ms(lambda: lev_gain(*args, ttot, ends), 50)
+            plain_ms = cuda_ms(lambda: lev_gain_plain(*args, ttot, ends), 3)
+            nbytes = (2 * npkt * B + npkt * B + 5 * B + args[2].numel()) * 4
+            sched = None if ends is None else np.diff(
+                ends.cpu().numpy(), prepend=0)
+            bms, by, text, ops = _lev_bound(_lev_gain_ops(fmt, sched),
+                                            npkt * B, nbytes)
+            gain_calls.append({"chain": chain, "shape": [npkt, B],
+                               "schedule": kind, "per_lane": lane, "ms": ms,
+                               "bound_ms": bms, "bound_by": by,
+                               "plain_ms": plain_ms,
+                               "ops_per_lane_packet": ops})
+            print(f"lev_gain {chain} [{npkt}, {B}] {kind} per lane {lane}: "
+                  f"kernel == plain (CPU) bit for bit; kernel {ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by}; {text}; a lane-packet "
+                  f"{ops['arith']:.1f} instructions, {ops['alu_only']:.1f} "
+                  f"ALU-only, on the path it executes), plain on the card "
+                  f"{plain_ms:.1f} ms",
+                  flush=True)
+        ramp = ("FloatRamp",) if chain == "float" else ("Q28Ramp",)
+        for npkt, B, lane in ((PACKETS, STREAMS, False),
+                              (PACKETS, 17408, True)):
+            t, ttot, ends = _lev_case(chain, npkt, B, "uniform", lane,
+                                      seed=npkt + B + len(apply_calls),
+                                      dev=dev)
+            g_cur = lev_gain(t["env_l"], t["env_r"], t["lev"], t["gdb0"],
+                             t["g0"], ttot)[0]
+            args = [t["bl"], t["br"], g_cur, t["g0"], t["ring"]]
+            n0 = LAUNCHES["lev_apply"]
+            got = lev_apply(*args)
+            torch.cuda.synchronize()
+            if LAUNCHES["lev_apply"] != n0 + 1:
+                fail("lev_apply did not count one launch")
+            want = lev_apply_plain(*args)
+            for name, g, w in zip(("out_l", "out_r", "lev_la"), got, want):
+                _same(g, w, f"lev_apply {chain} [{ttot}, {B}] {name} (plain "
+                            f"on the card)")
+            del want
+            idx = _edge_lanes(t["bl"].shape[1], dev)
+            cpu = lev_apply_plain(*[a.index_select(-1, idx).cpu()
+                                    for a in args])
+            for name, g, w in zip(("out_l", "out_r", "lev_la"), got, cpu):
+                _same(g.index_select(-1, idx), w,
+                      f"lev_apply {chain} [{ttot}, {B}] {name} (CPU, edge "
+                      f"lanes)")
+            del got, cpu
+            ms = cuda_ms(lambda: lev_apply(*args), 20)
+            plain_ms = cuda_ms(lambda: lev_apply_plain(*args), 2)
+            L = args[4].shape[1]
+            nbytes = (4 * ttot * B + 4 * L * B + npkt * B + B) * 4
+            bms, by, text, ops = _lev_bound(
+                _lev_ops(("lev_apply",) + ramp, "stg", 2), ttot * B, nbytes)
+            apply_calls.append({"chain": chain, "shape": [ttot, B],
+                                "per_lane": lane, "ms": ms, "bound_ms": bms,
+                                "bound_by": by, "plain_ms": plain_ms,
+                                "ops_per_sample": ops})
+            print(f"lev_apply {chain} [{ttot}, {B}] per lane {lane}: kernel "
+                  f"== plain bit for bit (the card, all lanes; the CPU, "
+                  f"edge lanes); kernel {ms:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}; {text}; a sample {ops['arith']:.1f} "
+                  f"instructions, {ops['alu_only']:.1f} ALU-only, the "
+                  f"limiter's reciprocal included), plain on the card "
+                  f"{plain_ms:.1f} ms", flush=True)
+            del args, g_cur, t
+    rows = []
+    for name, calls, replaces in (
+            ("lev_gain", gain_calls,
+             "dspi_tpu/chain/pipeline.py:489-531 and :966-1005 (the gain "
+             "computer, lev_step, a lax.scan, and exp10; no TPU kernel)"),
+            ("lev_apply", apply_calls,
+             "dspi_tpu/chain/pipeline.py:532-577 and :1006-1063 (the gain "
+             "ramp, a lax.scan in float, the lookahead, the limiter; no TPU "
+             "kernel)")):
+        head = next(c for c in calls if c["chain"] == "q28")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "dspi_tpu_torch/kernels/csrc/lev.cu",
+                     "replaces": replaces, "max_abs_err": 0.0,
+                     "plain_ms": head["plain_ms"], "library_ms": None,
+                     "equal_to_plain": True, "plain_shape": head["shape"],
+                     "kernel_ms_at_plain_shape": head["ms"],
+                     "ms": head["ms"], "bound_ms": head["bound_ms"],
+                     "bound_by": head["bound_by"], "calls": calls})
+    return rows
 
 
 def _q15_args(gen, T, B, lane, sched, dev):
@@ -2913,7 +3045,7 @@ def main() -> None:
     xf_row = phase_xf(dev)
     eqf_times = phase_eq_f32(dev)
     xff_row = phase_xf_f32(dev)
-    lev_row = phase_lev(dev)
+    lev_rows = phase_lev(dev)
     q15_row = phase_q15(dev)
     main_path = phase_main(dev, card)
     phase_card_vs_cpu(dev)
@@ -3012,7 +3144,7 @@ def main() -> None:
                      (lane_row, "eq_q28_lane_cf"),
                      (sched_row, "eq_q28_sched"), (xf_row, "xf_q28"),
                      (eqf_row, "eq_f32"), (xff_row, "xf_f32"),
-                     (lev_row, "lev_smooth")):
+                     *((r, r["name"]) for r in lev_rows)):
         row["launches_by_path"] = {p: n.get(key, 0) for p, n in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     q15_row["launches_by_path"] = {
@@ -3055,7 +3187,7 @@ def main() -> None:
         "stage_settings": STAGE_SMALL, "graft": graft,
         "firmware_oracles": oracle}, "fuzz": fuzz}), flush=True)
     print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
-                                  xf_row, eqf_row, xff_row, lev_row,
+                                  xf_row, eqf_row, xff_row, *lev_rows,
                                   q15_row]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,10 +74,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.packets import _pattern_len, _pkts_to_flat
 from ..kernels.eq_f32 import band_step_f32 as _band_step_f32
 from ..kernels.eq_f32 import svf_general_f32 as _svf_general_f32
 from . import layout
-from .layout import _chain_structure, _pattern_len, _pkts_to_flat
+from .layout import _chain_structure
 
 _F32 = torch.float32
 

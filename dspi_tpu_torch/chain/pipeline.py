@@ -32,11 +32,11 @@ and the rest as whole-segment integer tensor ops.  It takes per-stream
 parameters (``pack.build_params_multi``: any leaf may carry a trailing
 [B] stream axis) and packet schedules.
 
-In both, the leveller's packet-rate gain smoothing is one kernel call
-(kernels/lev_cuda.py, one thread a stream over the packets), the PDM
-modulator is the CUDA kernel (kernels/pdm_cuda.py) and, with
-``static.wire``, the s24 samples become the S/PDIF or I2S wire words
-(kernels/encoders.py) on the device.  Which bands run in which cascade,
+In both, the leveller's block phase is two kernel calls
+(kernels/lev_cuda.py: each packet's gain, then the ramp, lookahead,
+limiter and gain over every sample), the PDM modulator is the CUDA kernel
+(kernels/pdm_cuda.py) and, with ``static.wire``, the s24 samples become
+the S/PDIF or I2S wire words (kernels/encoders.py) on the device.  Which bands run in which cascade,
 and in what order a cascade's states sit, is chain/layout.py's, shared
 with the block lowering; each chain's cascade calls here add only what is
 its number format's: coefficient rows, scalars and the kernel call.
@@ -54,24 +54,21 @@ import numpy as np
 import torch
 
 from ..core import constants as C
-from ..core import fmath
-from ..core.qmath import f32_to_i32, q15_mul, q28_mul, q28_to_s24, wrap32
+from ..core.qmath import f32_to_i32, q15_mul, q28_mul, q28_to_s24
 from ..kernels import encoders
 from ..kernels.eq_cuda import q28_cascades
 from ..kernels.eq_f32_cuda import f32_cascades
-from ..kernels.lev_cuda import lev_smooth
+from ..kernels.lev_cuda import lev_apply, lev_gain
 from ..kernels.pdm_cuda import pdm_segment
 from ..kernels.q15_cuda import q15_gain, q15_mix
 from ..kernels.xf_cuda import xf_f32, xf_q28
 from ..runtime.telemetry import span
 from . import layout, mxu
-from .layout import _chain_structure, _pkts_to_flat
+from .layout import _chain_structure
 from .pack import SKIP, StaticChain
 
 _F32 = torch.float32
 _I32 = torch.int32
-_INV20 = float(np.float32(1.0) / np.float32(20.0))
-_TINY = float(np.float32(1e-30))
 
 
 # ----------------------------------------------------------------------------
@@ -79,16 +76,32 @@ _TINY = float(np.float32(1e-30))
 # ----------------------------------------------------------------------------
 
 
-def _lookahead(static: StaticChain, st, bl, br, Ttot):
-    """The leveller's lookahead: the time-ordered ring ``lev_la`` ahead of
-    the segment, the delayed stream a window of concat(ring, segment).
-    Returns (st', out_l, out_r); without lookahead the input itself."""
-    if not static.leveller_lookahead:
-        return st, bl, br
-    comb_l = torch.cat([st.lev_la[0], bl], dim=0)
-    comb_r = torch.cat([st.lev_la[1], br], dim=0)
-    st = st._replace(lev_la=torch.stack([comb_l[Ttot:], comb_r[Ttot:]]))
-    return st, comb_l[:Ttot], comb_r[:Ttot]
+def _packet_ends(static: StaticChain, sched, dev):
+    """A scheduled chain's packet ends, int32 [Npkt] on ``dev`` (the
+    leveller's and the Q15 gains' kernels take them); None for uniform
+    packets."""
+    if not static.schedule:
+        return None
+    return torch.from_numpy(np.cumsum(sched).astype(np.int32)).to(dev)
+
+
+def _leveller(static: StaticChain, p, st, bl, br, env_l, env_r, Ttot, ends):
+    """PASS 2.5, the leveller's block phase, both chains: from each
+    packet's end envelope (``env_l``, ``env_r`` [Npkt, B], float32 or Q28
+    int32) the gain of every packet (``lev_gain``), then the gain ramp, the
+    lookahead through the time-ordered ring ``lev_la``, the limiter and the
+    gained master (``lev_apply``).  Returns (st', bl', br')."""
+    st = st._replace(lev_env=torch.stack([env_l[-1], env_r[-1]]))
+    g_cur, gdb, g, g_prev = lev_gain(env_l.contiguous(), env_r.contiguous(),
+                                     p.lev, st.lev_gain_db, st.lev_gain,
+                                     Ttot, ends)
+    ring = st.lev_la if static.leveller_lookahead else None
+    bl, br, ring = lev_apply(bl.contiguous(), br.contiguous(), g_cur,
+                             st.lev_gain, ring, ends)
+    st = st._replace(lev_gain_db=gdb, lev_gain=g, lev_gain_prev=g_prev)
+    if ring is not None:
+        st = st._replace(lev_la=ring)
+    return st, bl, br
 
 
 def _delay_apply(ring_k, buf, dly, T, D):
@@ -161,37 +174,6 @@ def _segment_layout(static: StaticChain, x):
     Npkt, _, T, B = x.shape
     sched = np.full(Npkt, T, np.int64)
     return x.transpose(0, 1).reshape(2, Npkt * T, B), sched, Npkt, Npkt * T
-
-
-def _lev_gain_db(p, rms_sq, sched, gdb0):
-    """The leveller's block phase up to its smoothed gain, both chains
-    (leveller.c:147-227 / 274-354): the gain computer over every packet's
-    envelope (``rms_sq`` float32 [Npkt, B]), vectorized over packets, then
-    the block-rate attack/release recurrence from ``gdb0`` [B] as one
-    ``lev_smooth`` call, with the alpha^count correction
-    (leveller.c:223-227) hoisted; the count is each packet's length
-    ([Npkt, 1|B]).  Returns the smoothed gain (dB) after each packet,
-    float32 [Npkt, B]."""
-    a_att, a_rel = p.lev[1], p.lev[2]
-    thresh, knee, gate = p.lev[3], p.lev[4], p.lev[5]
-    max_gain, makeup = p.lev[7], p.lev[8]
-    slope, inv_two_knee = p.lev[9], p.lev[10]
-    rms_db = 10.0 * fmath.log10_f32(rms_sq + _TINY)
-    half = knee * 0.5
-    d = thresh + half - rms_db
-    zero = torch.zeros_like(rms_db)
-    gc = torch.where(
-        rms_db > thresh + half, zero,
-        torch.where(rms_db >= thresh - half,
-                    slope * d * d * inv_two_knee,
-                    (thresh - rms_db) * slope))
-    gc = torch.minimum(gc + makeup, max_gain)
-    gc = torch.where(rms_db < gate, zero, gc)                   # [Npkt, B]
-    counts = torch.from_numpy(sched.astype(np.float32))[:, None].to(
-        rms_sq.device)
-    pow_att = fmath.pow_f32(a_att, counts)
-    pow_rel = fmath.pow_f32(a_rel, counts)
-    return lev_smooth(gc, pow_att, pow_rel, gdb0)
 
 
 def _per_packet(vals, sched, Ttot):
@@ -508,54 +490,9 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
         # ---- PASS 2.5 leveller block phase (leveller.c:147-262) ----
         if static.leveller_on:
             with span("dspi.leveller"):
-                st = st._replace(lev_env=torch.stack([env_l[-1], env_r[-1]]))
-                gdbs = _lev_gain_db(p, torch.maximum(env_l, env_r), sched,
-                                    st.lev_gain_db)
-                g_cur_p = fmath.exp10_f32(gdbs * _INV20)      # [Npkt, B]
-                g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
-                st = st._replace(lev_gain_db=gdbs[-1], lev_gain=g_cur_p[-1],
-                                 lev_gain_prev=g_prev_p[-1])
-
-                # gain ramp with the firmware's sequential accumulation, all
-                # packets at once over the longest packet, then each packet's
-                # first n rows; a one-sample packet jumps to g_cur
-                # (leveller.c:216-221)
-                Tmax = int(sched.max())
-                if Tmax == 1:
-                    gains = g_cur_p
-                else:
-                    inv = np.zeros(Npkt, np.float32)
-                    nz = sched > 1
-                    inv[nz] = np.float32(1.0) / (sched[nz] - 1).astype(
-                        np.float32)
-                    step = (g_cur_p - g_prev_p) * torch.from_numpy(
-                        inv)[:, None].to(dev)
-                    g = g_prev_p
-                    if not nz.all():
-                        one = torch.from_numpy(~nz)[:, None].to(dev)
-                        g = torch.where(one, g_cur_p, g_prev_p)
-                        step = torch.where(one, torch.zeros_like(step), step)
-                    gains = torch.empty((Npkt, Tmax, B), dtype=_F32,
-                                        device=dev)
-                    for i in range(Tmax):
-                        gains[:, i] = g
-                        g = g + step
-                    gains = _pkts_to_flat(gains, sched, Ttot)
-
-                st, out_l, out_r = _lookahead(static, st, bl, br, Ttot)
-
-                peak = torch.maximum(out_l.abs(), out_r.abs())
-                max_g = fmath.det_div(
-                    float(np.float32(C.LEVELLER_LIMITER_CEIL)), peak)
-                one = torch.ones_like(max_g)
-                cap = torch.where(max_g > 1.0, max_g, one)
-                g_eff = torch.where(
-                    (peak > 0.0) & (gains > 1.0) & (max_g < gains), cap,
-                    gains)
-                del peak, max_g, cap, gains
-                bl = out_l * g_eff
-                br = out_r * g_eff
-                del out_l, out_r, g_eff
+                st, bl, br = _leveller(static, p, st, bl, br, env_l, env_r,
+                                       Ttot, _packet_ends(static, sched, dev))
+                del env_l, env_r
 
         with span("dspi.outputs"):
             # ---- PASS 3: master peaks (pre-crossfeed) ----
@@ -617,7 +554,6 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
 # ----------------------------------------------------------------------------
 
 _IDENT_Q28 = (C.Q28_ONE, 0, 0, 0, 0)        # an exact pass-through band row
-_INV_Q28 = 2.0 ** -28
 
 
 def _q28_rows(p, bands, nb, lane, B, dev, prefix):
@@ -719,6 +655,8 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
         if preset_mute is None:
             preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
         st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone())
+        # the leveller's and the output gains' packet ends (a schedule's)
+        ends = _packet_ends(static, sched, dev)
 
         with span("dspi.unpack"):
             # per-packet volume staging (usb_audio.c:975-980), Q15 [Npkt, 1|B]
@@ -747,63 +685,11 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
         # ---- PASS 2.5 leveller block phase (leveller.c:274-389) ----
         if static.leveller_on:
             with span("dspi.leveller"):
-                st = st._replace(lev_env=env[:, -1].clone())
-                env_f = env.to(_F32) * _INV_Q28              # [2, Npkt, B]
-                gdbs = _lev_gain_db(p, torch.maximum(env_f[0], env_f[1]),
-                                    sched, st.lev_gain_db)
+                st, bl, br = _leveller(static, p, st, bl, br, env[0], env[1],
+                                       Ttot, ends)
                 # dead from here: freed before the wire stage, where the
                 # segment's memory peaks
-                del env, env_f
-                # the Q28 gains of all packets in one pass
-                g_cur_p = f32_to_i32(                       # [Npkt, B]
-                    fmath.exp10_f32(gdbs * _INV20) * float(C.Q28_ONE))
-                g_prev_p = torch.cat([st.lev_gain[None], g_cur_p[:-1]])
-                st = st._replace(lev_gain_db=gdbs[-1], lev_gain=g_cur_p[-1],
-                                 lev_gain_prev=g_prev_p[-1])
-
-                # interpolated gain
-                # g_prev + (int64(g_cur - g_prev) * i) / (n - 1) with C's
-                # truncating division (leveller.c:352), n the packet's
-                # length; closed form over all packets and samples, then
-                # each packet's first n rows; a one-sample packet jumps to
-                # g_cur
-                Tmax = int(sched.max())
-                if Tmax == 1:
-                    gains = g_cur_p
-                else:
-                    diff = g_cur_p - g_prev_p          # int32 wrap, as C
-                    sign = 1 - 2 * (diff < 0).to(torch.int64)[:, None, :]
-                    # |diff| in int64, so that diff = -2^31 gives 2^31
-                    q = diff.to(torch.int64).abs()[:, None, :] * torch.arange(
-                        Tmax, dtype=torch.int64, device=dev)[None, :, None]
-                    div = torch.from_numpy(
-                        np.maximum(sched - 1, 1))[:, None, None]
-                    q = q.floor_divide_(div.to(dev)).mul_(sign).add_(
-                        g_prev_p[:, None, :])
-                    gains = wrap32(q)
-                    del diff, sign, q
-                    if (sched == 1).any():
-                        one = torch.from_numpy(
-                            sched == 1)[:, None, None].to(dev)
-                        gains = torch.where(one, g_cur_p[:, None, :], gains)
-                    gains = _pkts_to_flat(gains, sched, Ttot)
-
-                st, out_l, out_r = _lookahead(static, st, bl, br, Ttot)
-                del bl, br
-
-                # limiter (leveller.c:369-379): float peak, Q28 gain cap
-                peak = torch.maximum((out_l.to(_F32) * _INV_Q28).abs(),
-                                     (out_r.to(_F32) * _INV_Q28).abs())
-                max_g = f32_to_i32(fmath.det_div(
-                    float(np.float32(C.LEVELLER_LIMITER_CEIL)), peak)
-                    * float(C.Q28_ONE))
-                g_eff = torch.where(
-                    (gains > C.Q28_ONE) & (peak > 0.0) & (max_g < gains),
-                    max_g.clamp(min=C.Q28_ONE), gains)
-                del peak, max_g, gains
-                bl = q28_mul(out_l, g_eff)
-                br = q28_mul(out_r, g_eff)
-                del out_l, out_r, g_eff
+                del env
 
         with span("dspi.outputs"):
             # ---- PASS 3: master peaks, then the crossfeed kernel ----
@@ -832,8 +718,6 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
             # own plane (a zero gain needs no branch: q15_mul(x, 0) == 0)
             gains = f32_to_i32(p.out_gain.reshape(nout, 1, -1)
                                * vol_mul_master.to(_F32))
-            ends = (torch.from_numpy(np.cumsum(sched).astype(np.int32)).to(dev)
-                    if static.schedule else None)
             for o in range(nout):
                 if not static.output_enabled[o]:
                     continue

@@ -70,8 +70,11 @@ SERVE_DEPTH, SERVE_PACKETS = 8, 32
 # lane_kernel); the crossfeed reads its inputs from shared memory and
 # stores two words a sample.  The float cascade kernel is one library a
 # band-kinds signature: loop_ops counts each one the path loaded, a sample
-# being a step of its skewed loop (one cp.async each).  The leveller's
-# recurrence walks packets, not samples, and stores one word a packet
+# being a step of its skewed loop (one cp.async each).  The leveller's gain
+# kernel walks packets, not samples, and stores one word a packet (its
+# uniform-packet instances, the cells'); its sample kernel stores two
+# words a sample (the float and the Q28 instance of each, by the mangled
+# names of their template arguments)
 _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
           ("eq_q28", "cascade_kernelILi10ELb1ELb1EE",
            "eq master <10,1,1>", "ldg", 1),
@@ -83,7 +86,10 @@ _LOOPS = (("pdm", "pdm_kernel", "pdm", "ldg", 1),
            "eq output lane_cf <10,0,0>", "ldg", 1),
           ("xf_q28", "xf_kernel", "xf", "stg", 2),
           ("xf_f32", "xf_kernel", "xf_f32", "stg", 2),
-          ("lev", "lev_smooth", "lev_smooth (a packet)", "stg", 1))
+          ("lev", "5FloatELb0E", "lev_gain float (a packet)", "stg", 1),
+          ("lev", "3Q28ELb0E", "lev_gain q28 (a packet)", "stg", 1),
+          ("lev", "9FloatRampE", "lev_apply float", "stg", 2),
+          ("lev", "7Q28RampE", "lev_apply q28", "stg", 2))
 
 
 def span_table(prof, segments: int) -> None:

@@ -460,82 +460,230 @@ def test_a_span_has_no_device_side_twin():
     assert torch.equal(y, torch.full_like(x, 3.0))
 
 
+# lev_cases.gain_edges' packets and how they are passed: one-sample
+# packets by count or by their ends, the 44/45 schedule with one-sample
+# packets by its ends
+_EDGES = {"edges": ("ones", False), "edges_ends": ("ones", True),
+          "edges_one": ("one", True)}
+
+
+def _phase(chain, npkt, B, kind, lane, seed):
+    """``lev_cases.phase_case``'s inputs (``gain_edges``' for an ``_EDGES``
+    kind, B and lane then theirs) as CPU tensors, the packet ends (None
+    for uniform packets) and the case itself."""
+    from lev_cases import gain_edges, phase_case
+
+    if kind in _EDGES:
+        c = gain_edges(chain == "q28", npkt, _EDGES[kind][0], seed)
+        by_ends = _EDGES[kind][1]
+    else:
+        c = phase_case(chain == "q28", npkt, B, kind, lane, seed)
+        by_ends = kind != "uniform"
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in c.items()
+         if k != "sched"}
+    ends = torch.from_numpy(np.cumsum(c["sched"]).astype(np.int32)) \
+        if by_ends else None
+    return t, int(c["sched"].sum()), ends, c
+
+
+def _card(v):
+    return None if v is None else v.cuda()
+
+
+def _same_bits(got, want, what, lanes=None):
+    """``got`` on the card equals ``want`` bit for bit (over ``lanes``, a
+    bool mask of the last axis, where given)."""
+    assert (got is None) == (want is None), what
+    if want is not None:
+        assert got.is_cuda and got.dtype == want.dtype, what
+        got, want = got.cpu(), want.cpu()
+        if lanes is not None:
+            got, want = got[..., lanes], want[..., lanes]
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            what
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("npkt,B,lane,rate", [
-    (128, 16384, False, 48000.0), (128, 16384, True, 48000.0),
-    (178, 17408, False, 44100.0), (178, 17408, True, 44100.0),
-    (9, 65, True, 48000.0), (1, 1, False, 44100.0), (17, 5, False, 48000.0)])
-def test_lev_kernel_equals_plain(npkt, B, lane, rate):
-    """The leveller's packet recurrence on the card against its plain
-    version on the CPU and on the card, bit for bit: the cells' [128,
-    16,384] and the grouped 44.1 kHz [178, 17,408], uniform [Npkt, 1] and
-    per-lane [Npkt, B] alphas, ragged lane counts, the edge inputs of
-    ``lev_cases.case`` (zeros, denormals, huge targets, alphas 0 and 1, a
-    denormal sum); one launch a call."""
+@pytest.mark.parametrize("chain", ["float", "q28"])
+@pytest.mark.parametrize("npkt,B,kind,lane", [
+    (128, 16384, "uniform", False), (128, 16384, "uniform", True),
+    (178, 17408, "44k1", False), (178, 17408, "44k1", True),
+    (20, 65, "one", True), (1, 1, "uniform", False), (17, 5, "uniform", False),
+    (24, None, "edges", True), (24, None, "edges_ends", True),
+    (20, None, "edges_one", True)])
+def test_lev_kernel_equals_plain(chain, npkt, B, kind, lane):
+    """The leveller's packet-rate kernel (``lev_gain``: the gain computer,
+    the smoothing recurrence and the linear gain) on the card against its
+    plain version on the CPU and on the card, bit for bit: the cells'
+    [128, 16,384] and the grouped 44.1 kHz [178, 17,408], a schedule with
+    one-sample packets, scalar and per-lane parameters, ragged lane counts,
+    ``lev_cases.phase_case``'s envelopes (0, denormal, under the gate,
+    across the knee); one launch a call.  The ``_EDGES`` kinds put
+    ``lev_cases.gain_edges``' edges through the recurrence: targets of 0,
+    -0, +-1e-40, +-the smallest normal, +-3e38, 1e30; alphas of exactly 0,
+    1 and 0.5; start gains of +-1e-40, the smallest normal, +-3.3e38; and
+    the cancelling lane, whose first sum the kernel gives denormal.  There
+    the linear gains are compared on the lanes in ``exp2_f32``'s domain
+    (``lev_cases.exp2_domain``), the smoothed gain on all."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
-    from lev_cases import case, denormal_first
+    from lev_cases import denormal_first, exp2_domain
 
-    from dspi_tpu_torch.kernels.lev_cuda import lev_smooth, lev_smooth_plain
+    from dspi_tpu_torch.kernels.lev_cuda import lev_gain, lev_gain_plain
 
-    args = [torch.from_numpy(v) for v in case(npkt, B, lane, rate,
-                                               seed=npkt + B)]
-    want = lev_smooth_plain(*args)
-    on_card = [a.cuda() for a in args]
-    n0 = LAUNCHES["lev_smooth"]
-    got = lev_smooth(*on_card)
+    t, ttot, ends, c = _phase(chain, npkt, B, kind, lane,
+                              seed=npkt + (B or 0))
+    live = torch.from_numpy(exp2_domain(c)) if kind in _EDGES else None
+    args = [t[k] for k in ("env_l", "env_r", "lev", "gdb0", "g0")]
+    want = lev_gain_plain(*args, ttot, ends)
+    n0 = LAUNCHES["lev_gain"]
+    got = lev_gain(*[a.cuda() for a in args], ttot, _card(ends))
     torch.cuda.synchronize()
-    assert LAUNCHES["lev_smooth"] == n0 + 1
-    assert got.is_cuda and got.shape == (npkt, B)
-    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
-                                  want.numpy().view(np.uint32))
-    plain_card = lev_smooth_plain(*on_card)
-    assert torch.equal(plain_card.cpu().view(torch.int32),
-                       want.view(torch.int32))
-    assert LAUNCHES["lev_smooth"] == n0 + 1
-    if B >= 5:
-        assert denormal_first(got.cpu().numpy())
+    assert LAUNCHES["lev_gain"] == n0 + 1
+    for name, g, w in zip(("g_cur", "lev_gain_db", "lev_gain",
+                           "lev_gain_prev"), got, want):
+        _same_bits(g, w, name, None if name == "lev_gain_db" else live)
+    plain_card = lev_gain_plain(*[a.cuda() for a in args], ttot,
+                                _card(ends))
+    for name, g, w in zip(("g_cur", "lev_gain_db"), plain_card, want):
+        _same_bits(g, w, f"plain on the card: {name}",
+                   None if name == "lev_gain_db" else live)
+    assert LAUNCHES["lev_gain"] == n0 + 1
+    if kind in ("edges", "edges_ends"):
+        # the first packet alone: its smoothed gain is the cancelling
+        # lane's denormal sum, on the card as on the CPU
+        first = [args[0][:1], args[1][:1], *args[2:]]
+        got1 = lev_gain(*[a.cuda() for a in first], 1)
+        want1 = lev_gain_plain(*first, 1)
+        _same_bits(got1[1], want1[1], "first packet: lev_gain_db")
+        assert denormal_first(got1[1].cpu()[None].numpy(), lane=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "contiguous"])
+@pytest.mark.parametrize("chain", ["float", "q28"])
+@pytest.mark.parametrize("npkt,B,kind,lane,lookahead", [
+    (128, 1024, "uniform", False, True), (130, 129, "44k1", True, True),
+    (20, 65, "one", True, True), (2, 5, "uniform", False, True),
+    (12, 64, "uniform", True, False), (1, 1, "uniform", False, True),
+    (9, 257, "uniform", False, True)])
+def test_lev_apply_kernel_equals_plain(chain, npkt, B, kind, lane,
+                                       lookahead):
+    """The leveller's sample-rate kernel (``lev_apply``: ramp, lookahead,
+    limiter, gain) on the card against its plain version on the CPU and
+    on the card, bit for bit, outputs and ring: uniform packets past the
+    480-sample ring, segments shorter than it (the new ring keeps part of
+    the old), the 44/45 schedule and one with one-sample packets,
+    lookahead off, ragged lane counts; gains above unity against samples
+    at the limiter's ceiling; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    from dspi_tpu_torch.kernels.lev_cuda import (lev_apply, lev_apply_plain,
+                                                 lev_gain_plain)
+
+    t, ttot, ends, _ = _phase(chain, npkt, B, kind, lane,
+                              seed=7 * npkt + B)
+    g_cur = lev_gain_plain(t["env_l"], t["env_r"], t["lev"], t["gdb0"],
+                           t["g0"], ttot, ends)[0]
+    args = [t["bl"], t["br"], g_cur, t["g0"],
+            t["ring"] if lookahead else None]
+    want = lev_apply_plain(*args, ends)
+    n0 = LAUNCHES["lev_apply"]
+    got = lev_apply(*[_card(a) for a in args], _card(ends))
+    torch.cuda.synchronize()
+    assert LAUNCHES["lev_apply"] == n0 + 1
+    for name, g, w in zip(("out_l", "out_r", "lev_la"), got, want):
+        _same_bits(g, w, name)
+    plain_card = lev_apply_plain(*[_card(a) for a in args], _card(ends))
+    for name, g, w in zip(("out_l", "out_r", "lev_la"), plain_card, want):
+        _same_bits(g, w, f"plain on the card: {name}")
+    assert LAUNCHES["lev_apply"] == n0 + 1
+    unity = (1 << 28) if chain == "q28" else 1.0
+    assert bool((g_cur > unity).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "contiguous",
+                                 "ring"])
 def test_lev_kernel_refuses(bad):
-    """A tensor on another device, of another dtype, of a wrong shape or
-    not contiguous raises before any launch."""
+    """A tensor on another device, of another dtype, of a wrong shape, not
+    contiguous, or a ring of another dtype or lane count raises before any
+    launch, in each of the two wrappers."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    from dspi_tpu_torch.kernels.lev_cuda import lev_smooth
+    from dspi_tpu_torch.kernels.lev_cuda import lev_apply, lev_gain
 
-    gc = torch.zeros(8, 64, device="cuda")
-    pa = pr = torch.full((8, 1), 0.5, device="cuda")
-    g0 = torch.zeros(64, device="cuda")
+    t, ttot, _, _ = _phase("q28", 4, 64, "uniform", False, seed=3)
+    t = {k: v.cuda() for k, v in t.items()}
+    gain = [t[k] for k in ("env_l", "env_r", "lev", "gdb0", "g0")]
+    apply = [t["bl"], t["br"], t["env_l"], t["g0"], t["ring"]]
     if bad == "device":
-        g0 = g0.cpu()
+        gain[3], apply[3] = gain[3].cpu(), apply[3].cpu()
     elif bad == "dtype":
-        gc = gc.double()
+        gain[0], apply[0] = gain[0].float(), apply[0].float()
     elif bad == "shape":
-        pa = pr = torch.full((8, 2), 0.5, device="cuda")
+        gain[2], apply[2] = gain[2][:9], apply[2][:, :8]
+    elif bad == "contiguous":
+        gain[1] = gain[1].t().contiguous().t()
+        apply[1] = apply[1].t().contiguous().t()
     else:
-        gc = torch.zeros(64, 8, device="cuda").t()
-    n0 = LAUNCHES["lev_smooth"]
+        gain[4] = gain[4].float()
+        apply[4] = apply[4][:, :, :32]
+    n0 = LAUNCHES["lev_gain"], LAUNCHES["lev_apply"]
     with pytest.raises((TypeError, ValueError)):
-        lev_smooth(gc, pa, pr, g0)
-    assert LAUNCHES["lev_smooth"] == n0
+        lev_gain(*gain, ttot)
+    with pytest.raises((TypeError, ValueError)):
+        lev_apply(*apply)
+    assert (LAUNCHES["lev_gain"], LAUNCHES["lev_apply"]) == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["float", "q28"])
+def test_lev_apply_stays_in_planes(chain):
+    """Packet ends that do not tile the segment (one far past it, one
+    before zero, one going back) reach ``lev_apply``'s kernel unchecked
+    when launched past the wrapper, which reads ends on the CPU only: the
+    kernel clamps each packet's rows to the planes, so the launch ends
+    without a fault.  The samples it writes are then undefined, but the
+    ring's rows that come from the old ring, which no packet end moves,
+    equal the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from lev_cases import RING
+
+    from dspi_tpu_torch.kernels import build
+    from dspi_tpu_torch.kernels.lev_cuda import (bind, launch_apply,
+                                                 lev_apply_plain,
+                                                 lev_gain_plain)
+
+    t, ttot, _, _ = _phase(chain, 4, 64, "uniform", False, seed=11)
+    g_cur = lev_gain_plain(t["env_l"], t["env_r"], t["lev"], t["gdb0"],
+                           t["g0"], ttot)[0]
+    args = [t["bl"], t["br"], g_cur, t["g0"], t["ring"]]
+    want = lev_apply_plain(*args)
+    bad = torch.tensor([-100, 2**30, 96, 192], dtype=torch.int32)
+    got = launch_apply(bind(build.load("lev"))[1], *[a.cuda() for a in args],
+                       bad.cuda(), None)
+    torch.cuda.synchronize()
+    assert [tuple(v.shape) for v in got] == [tuple(v.shape) for v in want]
+    keep = RING - ttot                      # the old ring's last rows
+    _same_bits(got[2][:, :keep].contiguous(),
+               want[2][:, :keep].contiguous(), "lev_la")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("chain", ["q28", "float"])
 def test_leveller_segment_on_card_equals_cpu(monkeypatch, chain):
     """Two segments of each chain at 256 streams on the card and on the
-    CPU.  The kernel's output in the segment equals the plain version on
-    its own inputs, bit for bit, and is the state's ``lev_gain_db``.  Q28:
-    ``lev_gain_db``, ``lev_gain`` and the reduced outputs equal card vs
-    CPU.  Float (block lowering, whose products round in another order on
-    the card, so the envelope the gain computer reads differs there):
-    out/s24 within the float chain's 1e-6 relative RMS, peaks within 1 LSB,
-    the leveller state within the 3e-6 that test_torch_chain.py holds the
-    carried leveller leaves to (2.3e-6 read on an H100 for
-    ``lev_gain_db``)."""
+    CPU.  Each segment launches ``lev_gain`` and ``lev_apply`` once each;
+    their outputs in the segment equal their plain versions on their own
+    inputs, bit for bit, and ``lev_gain``'s are the state's leveller
+    gains.  Q28: ``lev_gain_db``, ``lev_gain`` and the reduced outputs
+    equal card vs CPU.  Float (block lowering, whose products round in
+    another order on the card, so the envelope the gain computer reads
+    differs there): out/s24 within the float chain's 1e-6 relative RMS,
+    peaks within 1 LSB, the leveller state within the 3e-6 that
+    test_torch_chain.py holds the carried leveller leaves to (2.3e-6 read
+    on an H100 for ``lev_gain_db``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from dspi_tpu_torch import Platform
@@ -545,29 +693,43 @@ def test_leveller_segment_on_card_equals_cpu(monkeypatch, chain):
 
     calls = []
 
-    def recorded(*a):
-        out = lev_cuda.lev_smooth(*a)
-        calls.append(([v.cpu() for v in a], out.cpu()))
-        return out
+    def recorded(fn, plain):
+        def call(*a):
+            out = fn(*a)
+            calls.append((plain, [_cpu(v) for v in a],
+                          [_cpu(v) for v in out]))
+            return out
+        return call
 
-    monkeypatch.setattr(pipeline, "lev_smooth", recorded)
+    monkeypatch.setattr(pipeline, "lev_gain", recorded(
+        lev_cuda.lev_gain, lev_cuda.lev_gain_plain))
+    monkeypatch.setattr(pipeline, "lev_apply", recorded(
+        lev_cuda.lev_apply, lev_cuda.lev_apply_plain))
     B, npkt = 256, 12
     plat = Platform.RP2040 if chain == "q28" else Platform.RP2350
     emit = "reduced" if chain == "q28" else "full"
     engs = [Engine(full_chain_config(plat), n_streams=B, emit=emit,
                    device=d) for d in ("cuda", "cpu")]
     rng = np.random.default_rng(91)
-    n0 = LAUNCHES["lev_smooth"]
+    n0 = LAUNCHES["lev_gain"], LAUNCHES["lev_apply"]
     for seg in range(2):
         x = rng.integers(-16000, 16000, size=(npkt, 2, 48, B)).astype(
             np.int32)
         k = len(calls)
         gpu = engs[0].process(x)
-        assert LAUNCHES["lev_smooth"] == n0 + seg + 1
-        args, out = calls[k]
-        assert torch.equal(out.view(torch.int32),
-                           lev_cuda.lev_smooth_plain(*args).view(torch.int32))
-        assert torch.equal(engs[0].state.lev_gain_db.cpu(), out[-1])
+        assert (LAUNCHES["lev_gain"], LAUNCHES["lev_apply"]) == (
+            n0[0] + seg + 1, n0[1] + seg + 1)
+        assert len(calls) == k + 2
+        for plain, args, out in calls[k:]:
+            for g, w in zip(out, plain(*args)):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    assert torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32))
+        st = engs[0].state
+        for f, v in zip(("lev_gain_db", "lev_gain", "lev_gain_prev"),
+                        calls[k][2][1:]):
+            assert torch.equal(getattr(st, f).cpu(), v), f
         cpu = engs[1].process(x)
         assert set(gpu) == set(cpu)
         if chain == "q28":
@@ -590,6 +752,12 @@ def test_leveller_segment_on_card_equals_cpu(monkeypatch, chain):
             errs[f] = float((g.double() - c.double()).pow(2).mean().sqrt()
                             / (c.double().pow(2).mean().sqrt() + 1e-30))
     assert all(e < 3e-6 for e in errs.values()), errs
+
+
+def _cpu(v):
+    """A tensor argument or output on the CPU (ints and None as they
+    are)."""
+    return v.cpu() if isinstance(v, torch.Tensor) else v
 
 
 def _q15_case(T, B, lane, sched, seed):

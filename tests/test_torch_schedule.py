@@ -25,8 +25,9 @@ from dspi_tpu.chain import packet_geometry as jpacket_geometry
 from dspi_tpu.chain import pipeline as jpipeline
 from dspi_tpu.golden.model import GoldenDevice
 from dspi_tpu_torch import Platform
-from dspi_tpu_torch.chain import Engine, layout, packet_geometry, pipeline
+from dspi_tpu_torch.chain import Engine, packet_geometry, pipeline
 from dspi_tpu_torch.configs import full_chain_config
+from dspi_tpu_torch.core import packets
 
 from test_torch_multi import assert_state_matches_jax
 from test_torch_pack import _convert
@@ -169,12 +170,12 @@ def test_schedule_helpers_match_jax(sched):
     schedules)."""
     s = np.asarray(sched, np.int64)
     ttot = int(s.sum())
-    assert layout._pattern_len(s) == jpipeline._pattern_len(s)
+    assert packets._pattern_len(s) == jpipeline._pattern_len(s)
     rng = np.random.default_rng(len(sched))
     arr = rng.integers(-2**31, 2**31, size=(len(s), int(s.max()), 3),
                        dtype=np.int64).astype(np.int32)
     np.testing.assert_array_equal(
-        layout._pkts_to_flat(torch.from_numpy(arr), s, ttot).numpy(),
+        packets._pkts_to_flat(torch.from_numpy(arr), s, ttot).numpy(),
         np.asarray(jpipeline._pkts_to_flat(jnp.asarray(arr), s, ttot)))
     for width in (1, 3):
         vals = arr[:, 0, :width].copy()
