@@ -64,11 +64,20 @@ precision "highest", the counterpart of the JAX package's
 Precision.HIGHEST (its reduced form measured 28x over the 1e-6 budget
 there).  ``require_fp32``
 sets both; each product checks them first.
+
+``COUNTS["carry_steps"]`` counts the steps of the sequential carries
+(``_apply_blocked``'s loop over packets and ``env_packet_ends``'), as
+``kernels.LAUNCHES`` counts launches: a 48 kHz segment of 128 packets
+takes 4 x 128 + 128 = 640, a 44.1 kHz one of 130 packets, re-blocked to
+147 blocks of 39, 4 x 147 + 130 = 718.  The work a schedule adds (the
+padded packet grid's gathers, its weights and packet ends) runs in the
+span ``dspi.sched``, which a uniform segment never opens.
 """
 
 from __future__ import annotations
 
 import functools
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -77,10 +86,13 @@ import torch
 from ..core.packets import _pattern_len, _pkts_to_flat
 from ..kernels.eq_f32 import band_step_f32 as _band_step_f32
 from ..kernels.eq_f32 import svf_general_f32 as _svf_general_f32
+from ..runtime.telemetry import span
 from . import layout
 from .layout import _chain_structure
 
 _F32 = torch.float32
+
+COUNTS: Counter = Counter()
 
 
 def require_fp32():
@@ -205,14 +217,18 @@ def _to_packets(x_flat, lay: Layout):
     """[Ttot, B] -> [Npkt, Tmax, B]; padded samples zero."""
     if lay.uniform:
         return x_flat.reshape(len(lay.sched), lay.tmax, x_flat.shape[-1])
-    idx, mask = _pad_index(lay.key, x_flat.device)
-    return x_flat.index_select(0, idx).reshape(
-        len(lay.sched), lay.tmax, x_flat.shape[-1]) * mask
+    with span("dspi.sched"):
+        idx, mask = _pad_index(lay.key, x_flat.device)
+        return x_flat.index_select(0, idx).reshape(
+            len(lay.sched), lay.tmax, x_flat.shape[-1]) * mask
 
 
 def _to_flat(y_pkts, lay: Layout):
     """[Npkt, Tmax, B] -> [Ttot, B], dropping padded rows."""
-    return _pkts_to_flat(y_pkts, lay.sched, int(lay.sched.sum()))
+    if lay.uniform:
+        return y_pkts.reshape((-1,) + y_pkts.shape[2:])
+    with span("dspi.sched"):
+        return _pkts_to_flat(y_pkts, lay.sched, int(lay.sched.sum()))
 
 
 def _embed(M_s, s: int, S: int, Tmax: int, n_io: int):
@@ -303,6 +319,7 @@ def _apply_blocked(M: Split, lay: Layout, x_pkts, s0, groups=None):
         y = torch.matmul(M.Tx, x_pkts)
         vx = torch.matmul(M.V, x_pkts)
     s = s0
+    COUNTS["carry_steps"] += N
     for k in range(N):
         if lay.uniform:
             U, W = M.U, M.W
@@ -395,11 +412,13 @@ def env_packet_ends(static, p, st, bl, br, Npkt):
         y2l, y2r = (v.reshape(Npkt, Tmax, -1) for v in (bl, br))
         aT = pw[Tmax - 1].expand(Npkt, *a.shape)
     else:
-        sizes = sorted({int(n) for n in sched})
-        which = torch.from_numpy(np.searchsorted(sizes, sched)).to(a.device)
-        w = torch.stack([w_for(n) for n in sizes]).index_select(0, which)
-        y2l, y2r = (_to_packets(v, lay) for v in (bl, br))
-        aT = pw.index_select(0, torch.from_numpy(sched - 1).to(a.device))
+        with span("dspi.sched"):
+            sizes = sorted({int(n) for n in sched})
+            which = torch.from_numpy(np.searchsorted(sizes, sched)).to(
+                a.device)
+            w = torch.stack([w_for(n) for n in sizes]).index_select(0, which)
+            y2l, y2r = (_to_packets(v, lay) for v in (bl, br))
+            aT = pw.index_select(0, torch.from_numpy(sched - 1).to(a.device))
     if a.dim():                          # per-lane weights
         cl = (w * (y2l * y2l)).sum(dim=1)
         cr = (w * (y2r * y2r)).sum(dim=1)
@@ -411,6 +430,7 @@ def env_packet_ends(static, p, st, bl, br, Npkt):
         cr = torch.matmul(w[:, None], y2r * y2r)[:, 0]
     el, er = st.lev_env[0], st.lev_env[1]
     out_l, out_r = [], []
+    COUNTS["carry_steps"] += Npkt
     for k in range(Npkt):
         el = aT[k] * el + cl[k]
         er = aT[k] * er + cr[k]

@@ -82,7 +82,8 @@ def _packet_ends(static: StaticChain, sched, dev):
     packets."""
     if not static.schedule:
         return None
-    return torch.from_numpy(np.cumsum(sched).astype(np.int32)).to(dev)
+    with span("dspi.sched"):
+        return torch.from_numpy(np.cumsum(sched).astype(np.int32)).to(dev)
 
 
 def _leveller(static: StaticChain, p, st, bl, br, env_l, env_r, Ttot, ends):
@@ -179,8 +180,9 @@ def _segment_layout(static: StaticChain, x):
 def _per_packet(vals, sched, Ttot):
     """Broadcast a per-packet [Npkt, 1|B] array to [Ttot, 1|B] along the
     schedule."""
-    reps = torch.from_numpy(sched).to(vals.device)
-    return torch.repeat_interleave(vals, reps, dim=0, output_size=Ttot)
+    with span("dspi.sched"):
+        reps = torch.from_numpy(sched).to(vals.device)
+        return torch.repeat_interleave(vals, reps, dim=0, output_size=Ttot)
 
 
 def _unflatten(arrs, Npkt, T):

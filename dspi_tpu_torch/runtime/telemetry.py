@@ -11,7 +11,8 @@ same EMA shape and folded to the same Q8 wire value the host app expects.
 
 ``span(name)`` names a phase of a segment for ``torch.profiler``: the
 chain's spans (``dspi.segment`` and its phases, ``dspi.q15_mul``, the
-scan lowering's float cascade and crossfeed calls, the multi-tenant
+scan lowering's float cascade and crossfeed calls, a packet schedule's
+own work, ``dspi.sched``, the multi-tenant
 bucket gathers, the ack fold, kernel builds) appear in a
 profile exactly when one records, and cost one flag check otherwise.
 """

@@ -15,11 +15,20 @@ Schedules, one for each form of the LTI passes' layout (``mxu._layout``):
   * "periodic": (44, 45, 44, 45, 45) twice, 446 samples (2 x 223): shared
     matrices per pattern position.
 
+and, against the golden model alone, "rp2350_44k1": the benchmark's
+configuration of that name (``benchmark/configs/rp2350_44k1.json``) on
+``packet_geometry``'s cadence, as its cell ``rp2350_render_44k1`` builds
+the engine, over 3 chained segments of 8 streams.
+
 Held to: ``out``/``s24`` <= 1e-6 relative RMS against the JAX engine and
 the golden model; peaks within 1 LSB; PDM words equal up to the first
 differing modulator input; a uniform schedule word-equal to the blocked
 program.  ``tests/test_torch_float_leveller.py`` reads the leveller after
 130 packets.
+
+The block lowering counts its packet-carry steps
+(``mxu.COUNTS["carry_steps"]``) and opens the span ``dspi.sched`` around
+the work a schedule adds, only where there is a schedule.
 """
 
 import functools
@@ -28,11 +37,13 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.reference import config as ref_config
 from dspi_tpu import Platform as JPlatform
 from dspi_tpu.chain import Engine as JEngine
 from dspi_tpu.golden.model import GoldenDevice
+from dspi_tpu.params import types as jtypes
 from dspi_tpu_torch import Platform
-from dspi_tpu_torch.chain import Engine, mxu
+from dspi_tpu_torch.chain import Engine, mxu, packet_geometry
 from dspi_tpu_torch.configs import full_chain_config
 
 from test_torch_chain import _pcm_prefix_equal, _rel_rms
@@ -51,6 +62,7 @@ SCHEDULES = {
 # its period (None: uniform or aperiodic)
 LTI = {"cadence": (42, 1), "one_sample": (None, None),
        "periodic": (None, 5)}
+CELL_CONFIG, CELL_B, CELL_SEGMENTS = "rp2350_44k1", 8, 3
 
 
 def _full(out):
@@ -112,10 +124,37 @@ def test_float_44k1_matches_jax_engine(name):
                                  to["out"][-1], jo["out"][-1]) > 0
 
 
-@pytest.mark.parametrize("name", list(SCHEDULES))
+@functools.lru_cache(maxsize=None)
+def _run_cell():
+    """The port on the benchmark's ``rp2350_44k1`` configuration, built as
+    its cell builds it (``packet_geometry``'s cadence, one 10 ms group a
+    segment, the PDM sub on without its fade-in), and the golden model on
+    the same packets, over chained segments of seeded s16 at +-16000."""
+    jcfg = ref_config.build(ref_config.load(CELL_CONFIG), jtypes)
+    block, sched = packet_geometry(jcfg.sample_rate, 10)
+    te = Engine(_convert(jcfg), n_streams=CELL_B, block_size=block,
+                schedule=sched, emit="full", pdm_fade=False, device="cpu")
+    golds = [GoldenDevice(jcfg.copy()) for _ in range(CELL_B)]
+    rng = np.random.default_rng(0x44100)
+    mute = np.ones(len(sched), np.float32)
+    outs, gold = [], []
+    for _ in range(CELL_SEGMENTS):
+        x = rng.integers(-16000, 16000,
+                         size=(2, sum(sched), CELL_B)).astype(np.int32)
+        outs.append((None, _full(te.process(x, mute))))
+        gold.append(_golden_feed(golds, x, sched, mute))
+    return outs, gold
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES) + [CELL_CONFIG])
 def test_float_44k1_matches_golden(name):
-    outs, _, _, gold = _run(name)
+    if name == CELL_CONFIG:
+        outs, gold = _run_cell()
+        assert len(outs) == CELL_SEGMENTS
+    else:
+        outs, _, _, gold = _run(name)
     for seg, (_, to) in enumerate(outs):
+        B = to["out"].shape[-1]
         want = np.stack([np.concatenate([np.asarray(p["buf_out"])
                                          for p in per], axis=-1)
                          for per in gold[seg]], axis=-1)
@@ -177,3 +216,56 @@ def test_update_config_48_to_44k1_matches_jax():
             assert to[k].shape == jo[k].shape, (i, k)
             assert _rel_rms(to[k], jo[k]) < 1e-6, (i, k)
     assert outs[-1][1]["out"].shape == (9, 441, B)
+
+
+def _steps_a_segment(rate, n_packets):
+    """The block lowering's carry steps a segment of the full chain at
+    ``rate`` (``packet_geometry``'s packets): two master cascades, the
+    crossfeed and the output cascades over the LTI layout's blocks, and the
+    envelope over the real packets."""
+    block, sched = packet_geometry(rate, n_packets)
+    key = (tuple(sched or ()), block, len(sched or ()) or n_packets)
+    return (4 * len(mxu._layout(*key, True).sched)
+            + len(mxu._layout(*key, False).sched))
+
+
+@pytest.mark.parametrize("rate,n_packets,steps,cell_packets,at_cell", [
+    (44100.0, 10, 4 * 9 + 10, 130, 4 * 147 + 130),
+    (48000.0, 4, 5 * 4, 128, 5 * 128)])
+def test_carry_steps_count_the_layouts_steps(rate, n_packets, steps,
+                                             cell_packets, at_cell):
+    """``mxu.COUNTS["carry_steps"]`` grows by the layout's steps a segment
+    (44.1 kHz: 441 samples re-blocked to 9 blocks of 49 and 10 packets; 48
+    kHz: 4 packets), and the layout at the cells' shapes gives 718 (130
+    packets: 147 blocks of 39) and 640 (128 packets of 48)."""
+    assert _steps_a_segment(rate, n_packets) == steps
+    assert _steps_a_segment(rate, cell_packets) == at_cell
+    block, sched = packet_geometry(rate, n_packets)
+    eng = Engine(full_chain_config(Platform.RP2350, rate), 2,
+                 block_size=block, schedule=sched, pdm=False,
+                 emit="reduced", device="cpu")
+    x = (np.zeros((2, sum(sched), 2), np.int32) if sched
+         else np.zeros((n_packets, 2, block, 2), np.int32))
+    before = mxu.COUNTS["carry_steps"]
+    for _ in range(2):
+        eng.process(x)
+    assert mxu.COUNTS["carry_steps"] - before == 2 * steps
+
+
+@pytest.mark.parametrize("rate", [44100.0, 48000.0])
+def test_sched_span_opens_only_on_a_schedule(rate):
+    """A profiled segment opens ``dspi.sched`` on the 44/45 cadence, and
+    none at 48 kHz, whose segment runs no schedule work."""
+    block, sched = packet_geometry(rate, 10)
+    eng = Engine(full_chain_config(Platform.RP2350, rate), 2,
+                 block_size=block, schedule=sched, pdm=False,
+                 emit="reduced", device="cpu")
+    x = (np.zeros((2, sum(sched), 2), np.int32) if sched
+         else np.zeros((10, 2, block, 2), np.int32))
+    eng.process(x)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        eng.process(x)
+    names = {e.name for e in prof.events()}
+    assert "dspi.segment" in names
+    assert ("dspi.sched" in names) == (sched is not None)
