@@ -58,7 +58,13 @@ Phases (each prints one line; any failure exits non-zero):
      gains, on the 44/45 schedule at [5733, 16384], and at a lane count
      that is not a multiple of 4; then a segment's Q15 work (one mix of 5
      outputs and 5 gains) timed at 16384 and at 17408 lanes beside its
-     byte bound, and the plain versions' on the card
+     byte bound, and the plain versions' on the card.  Then the float
+     block lowering's carries (carry.cu) on the headline chain's block
+     matrices at the block cells' shapes: ``carry`` for a master channel,
+     the crossfeed and the 9 batched outputs at 48 kHz and on the 44.1
+     kHz cell's 147 blocks of 39, within 1e-6 of its plain version on the
+     card, and ``env_carry`` bit for bit on the uniform and the padded
+     packet grid; each timed beside its byte bound and the plain loop
   6. the float main path at full width: Engine on the headline RP2350
      chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
      samples with state carried and a fresh input each (x ^ i); launch
@@ -137,7 +143,8 @@ Phases (each prints one line; any failure exits non-zero):
      mid-run commits.  The entry point prints each batch (wall, RTF, each
      stream's real-time ratio, upload, launches, starvations); this
      script prints each run's summary and peak memory.  Fails unless
-     every segment launched the PDM kernel exactly once and nothing else,
+     every segment launched the leveller's, PDM and carry kernels once
+     each (``carry`` four times) and nothing else,
      and the starvation counters equal the firmware's count of the feed
      gaps over a batch's audio time; starvations themselves do not fail
  15. runner card vs CPU: a ChainedRunner fed payloads through
@@ -241,6 +248,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # gains and the sample pass) and the PDM modulator launch once a segment
 # each
 LEV_PDM = {"lev_gain": 1, "lev_apply": 1, "pdm": 1}
+# a float block-lowering segment adds its carries (carry.cu): the state
+# walk of the two master channels, the crossfeed and the batched outputs,
+# and the leveller envelope's packet ends
+FLOAT_BLOCK = {**LEV_PDM, "carry": 4, "env_carry": 1}
 # the Q28 chain's Q15 products: the matrix mix once a segment, an output
 # gain once a live output (the RP2040 headline chain's 5)
 Q15 = {"q15_mix": 1, "q15_gain": 5}
@@ -394,6 +405,8 @@ def phase_build() -> dict:
                          "max_registers": max(regs.values()),
                          "spill_bytes": spill,
                          "seconds": round(r["seconds"], 1)}
+        if name == "carry":
+            summary[name]["registers"] = regs
         if name == "eq_q28":
             # the instances the q28 and hetero paths launch
             summary[name]["registers"] = {
@@ -555,7 +568,7 @@ def phase_main(dev, card: str) -> dict:
     x = torch.randint(-16000, 16000, (PACKETS, 2, BLOCK, STREAMS),
                       generator=gen, dtype=torch.int32, device=dev)
     result = drive_path(dev, card, "main path", eng, x,
-                        STREAMS * PACKETS * BLOCK / RATE, LEV_PDM, 11,
+                        STREAMS * PACKETS * BLOCK / RATE, FLOAT_BLOCK, 11,
                         peak_max=32767)
     result["calls"] = record_calls(eng, x, "main path", kinds=("pdm",))
     return result
@@ -1110,8 +1123,8 @@ def phase_xf_f32(dev) -> dict:
 
 def per_segment(n: int) -> dict:
     """The launches of ``n`` segments of a path that launches only the
-    leveller and PDM kernels (the float block lowering, serving)."""
-    return {k: n * v for k, v in LEV_PDM.items()}
+    leveller, PDM and carry kernels (the float block lowering, serving)."""
+    return {k: n * v for k, v in FLOAT_BLOCK.items()}
 
 
 def _sass_fn(lib: str, *parts: str) -> str:
@@ -1301,6 +1314,153 @@ def phase_lev(dev) -> list:
                      "ms": head["ms"], "bound_ms": head["bound_ms"],
                      "bound_by": head["bound_by"], "calls": calls})
     return rows
+
+
+FP32_FLOPS = 67e12           # FFMA outside the tensor cores, 2 flops each
+
+
+def _carry_bound(nbytes: float, fmas: float) -> tuple[float, str]:
+    """A carry's least time, ms, and what sets it: its bytes at the HBM
+    rate or its FMAs at the float32 rate (H100 SXM data sheet)."""
+    b, f = nbytes / HBM_BYTES_PER_S, 2 * fmas / FP32_FLOPS
+    return 1e3 * max(b, f), "bytes" if b >= f else "FMAs"
+
+
+def phase_carry(dev, registers=None) -> list:
+    """The block lowering's packet carries (carry.cu) at the cells' shapes,
+    on the headline float chain's own block matrices: ``carry`` for a
+    master channel, the crossfeed and the batched outputs of
+    rp2350_render ([128, 48 | 96 | 9 x 48, 16384], S 24 / 4 / 20) and of
+    rp2350_render_44k1 (147 blocks of 39) against its plain version on the
+    card, y and sF within 1e-6 relative RMS; ``env_carry`` on the uniform
+    128-packet grid and the 130-packet padded one, bit for bit; each timed
+    with CUDA events beside its bound (bytes: y read and written, vx read;
+    or FMAs) and the plain version's time on the card; a segment's five
+    launches summed.  ``registers``: the build's ptxas report by kernel.
+    Returns the two kernels' rows."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, packet_geometry
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.kernels import LAUNCHES
+    from dspi_tpu_torch.kernels.carry_cuda import (carry, carry_plain,
+                                                   env_carry, env_carry_plain)
+
+    registers = registers or {}
+    gen = torch.Generator(device=dev).manual_seed(67)
+    calls, env_calls, segments = [], [], {}
+    for cell, rate, npkt in (("rp2350_render", RATE, PACKETS),
+                             ("rp2350_render_44k1", 44100.0, 130)):
+        block, sched = packet_geometry(rate, npkt)
+        eng = Engine(full_chain_config(Platform.RP2350, rate), n_streams=1,
+                     block_size=block, schedule=sched, device=dev)
+        blocks = eng.blocks
+        seg = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+        for what, M, reps in (("master", blocks.a[0], 2),
+                              ("crossfeed", blocks.xf, 1),
+                              ("outputs", blocks.out, 1)):
+            A, (Ry, S) = tuple(M.U.shape[:-2]), tuple(M.U.shape[-2:])
+            T = Ry // 2 if what == "crossfeed" else Ry
+            N = sum(sched) // T if sched else npkt
+            y = torch.randn((N, *A, Ry, STREAMS), generator=gen, device=dev)
+            vx = torch.randn((N, *A, S, STREAMS), generator=gen, device=dev)
+            s0 = torch.randn((*A, S, STREAMS), generator=gen, device=dev)
+            want_y = y.clone()
+            want_s = carry_plain(want_y, vx, s0, M.U, M.W)
+            n0 = LAUNCHES["carry"]
+            got_s = carry(y, vx, s0, M.U, M.W)
+            torch.cuda.synchronize()
+            if LAUNCHES["carry"] != n0 + 1:
+                fail("carry did not count one launch")
+            errs = [float(((g - w).double().pow(2).mean()
+                           / w.double().pow(2).mean()).sqrt())
+                    for g, w in ((y, want_y), (got_s, want_s))]
+            if max(errs) > 1e-6:
+                fail(f"carry {what} {cell}: kernel vs plain relative RMS "
+                     f"{errs} > 1e-6")
+            del want_y, want_s
+            ms = cuda_ms(lambda: carry(y, vx, s0, M.U, M.W), 20)
+            plain_ms = cuda_ms(lambda: carry_plain(y, vx, s0, M.U, M.W), 3)
+            nA = int(np.prod(A)) if A else 1
+            nbytes = 4 * (N * nA * STREAMS * (2 * Ry + S)
+                          + 2 * nA * S * STREAMS + nA * (Ry + S) * S)
+            bms, by = _carry_bound(nbytes, N * nA * STREAMS * (Ry + S) * S)
+            regs = next((n for f, n in registers.items()
+                         if f"carry_kernelILi{S}E" in f), None)
+            calls.append({"cell": cell, "what": what,
+                          "shape": [N, *A, Ry, STREAMS], "S": S, "ms": ms,
+                          "bound_ms": bms, "bound_by": by,
+                          "plain_ms": plain_ms, "rel_rms": errs,
+                          "registers": regs})
+            seg["ms"] += reps * ms
+            seg["bound_ms"] += reps * bms
+            seg["plain_ms"] += reps * plain_ms
+            print(f"carry {what} {cell} {[N, *A, Ry, STREAMS]} S {S}: "
+                  f"kernel vs plain (card) relative RMS y {errs[0]:.3e}, "
+                  f"sF {errs[1]:.3e}; kernel {ms:.4f} ms, bound {bms:.4f} "
+                  f"ms ({by}), {100 * bms / ms:.1f}% of it; plain on the "
+                  f"card {plain_ms:.2f} ms; {regs} registers", flush=True)
+            del y, vx, s0
+        # the envelope: uniform packets (one alpha, an expanded view) or
+        # the padded grid's [Npkt] of a^T_k
+        a = eng.params.lev[0]
+        aT = (a.expand(npkt) if not sched else
+              torch.rand((npkt,), generator=gen, device=dev))
+        cl = torch.rand((npkt, STREAMS), generator=gen, device=dev)
+        cl = cl * (cl > 0.3) * 1e-29
+        cr = torch.rand((npkt, STREAMS), generator=gen, device=dev)
+        el0, er0 = cl[0].clone(), cr[0].clone() * 1e-30
+        args = (aT, cl, cr, el0, er0)
+        n0 = LAUNCHES["env_carry"]
+        got = env_carry(*args)
+        torch.cuda.synchronize()
+        if LAUNCHES["env_carry"] != n0 + 1:
+            fail("env_carry did not count one launch")
+        for g, w, side in zip(got, env_carry_plain(*args), "lr"):
+            _same(g, w, f"env_carry {cell} env_{side}")
+        ms = cuda_ms(lambda: env_carry(*args), 50)
+        plain_ms = cuda_ms(lambda: env_carry_plain(*args), 3)
+        bms, by = _carry_bound(4 * (4 * npkt * STREAMS + 2 * STREAMS + npkt),
+                               0)
+        regs = next((n for f, n in registers.items() if "env_kernel" in f),
+                    None)
+        env_calls.append({"cell": cell, "shape": [npkt, STREAMS],
+                          "ms": ms, "bound_ms": bms, "bound_by": by,
+                          "plain_ms": plain_ms, "registers": regs})
+        seg["ms"] += ms
+        seg["bound_ms"] += bms
+        seg["plain_ms"] += plain_ms
+        segments[cell] = seg
+        print(f"env_carry {cell} [{npkt}, {STREAMS}]: kernel == plain bit "
+              f"for bit; kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}); "
+              f"plain on the card {plain_ms:.2f} ms; {regs} registers",
+              flush=True)
+        print(f"carries of a {cell} segment (5 launches): kernels "
+              f"{seg['ms']:.3f} ms, bound {seg['bound_ms']:.3f} ms, plain "
+              f"loops on the card {seg['plain_ms']:.2f} ms", flush=True)
+        del eng, blocks
+    head = calls[0]
+    return [
+        {"name": "carry", "route": "cuda",
+         "source": "dspi_tpu_torch/kernels/csrc/carry.cu",
+         "replaces": "dspi_tpu/chain/mxu.py:285-490 (_apply_blocked and "
+                     "_apply_blocked_batched, a lax.scan over packets; no "
+                     "TPU kernel)",
+         "max_rel_rms": max(max(c["rel_rms"]) for c in calls),
+         "plain_ms": head["plain_ms"], "library_ms": None,
+         "equal_to_plain": False, "plain_shape": head["shape"],
+         "kernel_ms_at_plain_shape": head["ms"], "ms": head["ms"],
+         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+         "calls": calls, "segments": segments},
+        {"name": "env_carry", "route": "cuda",
+         "source": "dspi_tpu_torch/kernels/csrc/carry.cu",
+         "replaces": "dspi_tpu/chain/mxu.py:686-695 (env_packet_ends' "
+                     "lax.scan; no TPU kernel)",
+         "max_abs_err": 0.0, "plain_ms": env_calls[0]["plain_ms"],
+         "library_ms": None, "equal_to_plain": True,
+         "plain_shape": env_calls[0]["shape"],
+         "kernel_ms_at_plain_shape": env_calls[0]["ms"],
+         "ms": env_calls[0]["ms"], "bound_ms": env_calls[0]["bound_ms"],
+         "bound_by": env_calls[0]["bound_by"], "calls": env_calls}]
 
 
 def _q15_args(gen, T, B, lane, sched, dev):
@@ -1874,7 +2034,7 @@ def phase_float_wire(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(47)
     x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
     result = drive_path(dev, card, "float wire path", eng, x,
-                        STREAMS * PACKETS * BLOCK / RATE, LEV_PDM, 11,
+                        STREAMS * PACKETS * BLOCK / RATE, FLOAT_BLOCK, 11,
                         peak_max=32767,
                         keys=("peaks", "s24_sum", "pdm_sum", "wire_sum"))
     result["calls"] = record_calls(eng, x, "float wire path", kinds=("pdm",))
@@ -1908,7 +2068,7 @@ def phase_float_44k1(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(53)
     x = _rand_i32(gen, -16000, 16000, (2, ttot, STREAMS), dev)
     result = drive_path(dev, card, "float 44.1 kHz path", eng, x,
-                        STREAMS * ttot / 44100.0, LEV_PDM, 11,
+                        STREAMS * ttot / 44100.0, FLOAT_BLOCK, 11,
                         peak_max=32767)
     result.update(lti_block=lay.tmax,
                   calls=record_calls(eng, x, "float 44.1 kHz path",
@@ -1939,7 +2099,7 @@ def phase_float_hetero(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(59)
     x = _rand_i32(gen, -16000, 16000, (PACKETS, 2, BLOCK, STREAMS), dev)
     result = drive_path(dev, card, "float hetero path", srv, x,
-                        STREAMS * PACKETS * BLOCK / RATE, LEV_PDM, 11,
+                        STREAMS * PACKETS * BLOCK / RATE, FLOAT_BLOCK, 11,
                         peak_max=32767)
     result.update(padding_waste=srv.padding_waste, lanes=lanes,
                   calls=record_calls(srv, x, "float hetero path",
@@ -2196,8 +2356,9 @@ def phase_serving(card: str) -> dict:
     on the card and packed s24 bytes deframed on the host; serve_hetero
     over 8 configs fed s16 payload words.  SERVE_BATCHES batches each,
     with the mid-run commits; launch counts set to 0 just before each run
-    and read just after.  Fails unless every segment launched the PDM
-    kernel exactly once and nothing else, and the starvation counters are
+    and read just after.  Fails unless every segment launched the
+    leveller's, PDM and carry kernels (``per_segment``) and nothing else,
+    and the starvation counters are
     the firmware's count of the feed gaps that exceeded a batch's audio
     time (n_slots a gap, none while a preset operation held the mute);
     starvations themselves do not fail.  The first PDM call of the first
@@ -2231,8 +2392,7 @@ def phase_serving(card: str) -> dict:
         depth = r["depth"]
         if launches != per_segment(depth * SERVE_BATCHES):
             fail(f"{label} launched {launches} in {SERVE_BATCHES} batches "
-                 f"of {depth} segments, not one leveller and one PDM launch "
-                 f"a segment")
+                 f"of {depth} segments, not {per_segment(1)} a segment")
         for b in r["batches"]:
             if b["launches"] != per_segment(depth):
                 fail(f"{label} batch {b['batch']} launched {b['launches']}")
@@ -2712,9 +2872,10 @@ def phase_bench(dev, card: str, main_path: dict) -> dict:
     full width: the headline float chain, 16384 streams x 128 packets,
     BENCH_DEPTH chained segments a run (x ^ i each), best of BENCH_ITERS
     runs from the restored state, each run's fold equal to the first's;
-    launch counts set to 0 just before and read just after (one leveller
-    and one PDM launch a segment: the warm-up run, the timed runs and the two latency
-    segments).  Printed beside this run's float main path (phase 6)."""
+    launch counts set to 0 just before and read just after
+    (``per_segment`` a segment: the warm-up run, the timed runs and the
+    two latency segments).  Printed beside this run's float main path
+    (phase 6)."""
     from dspi_tpu_torch import Platform, bench
     from dspi_tpu_torch.configs import full_chain_config
 
@@ -2731,8 +2892,8 @@ def phase_bench(dev, card: str, main_path: dict) -> dict:
     launches = _launches()
     segments = BENCH_DEPTH * (1 + max(BENCH_ITERS, 2)) + 2
     if launches != per_segment(segments):
-        fail(f"bench headline launched {launches}, not {segments} "
-             f"leveller and {segments} PDM")
+        fail(f"bench headline launched {launches}, not "
+             f"{per_segment(segments)}")
     audio_s = STREAMS * PACKETS * BLOCK / RATE
     seg_ms = 1e3 * audio_s / rtf
     gap = seg_ms / main_path["mean_ms"] - 1.0
@@ -2757,7 +2918,7 @@ def phase_full96(dev, card: str) -> dict:
     kHz, 16384 streams x 64 packets x 96 samples (the 48 kHz segment's
     samples), 4 chained segments a run, with the card's peak memory (the
     port applies the 96 kHz blocks without the JAX package's x-chunking);
-    one leveller and one PDM launch a segment."""
+    ``per_segment``'s launches a segment."""
     from dspi_tpu_torch import bench_stages
 
     S = bench_stages.Settings(B=STREAMS, NPKT=PACKETS // 2, ITERS=2, DEPTH=4,
@@ -2768,8 +2929,7 @@ def phase_full96(dev, card: str) -> dict:
     launches = _launches()
     segments = S.DEPTH * (1 + max(S.ITERS, 2)) + 2
     if launches != per_segment(segments):
-        fail(f"full96 launched {launches}, not {segments} leveller and "
-             f"{segments} PDM")
+        fail(f"full96 launched {launches}, not {per_segment(segments)}")
     print(f"full96 (bench_stages): {S.B} streams x {S.NPKT}x96 samples, RTF "
           f"{r['rtf']:.1f}x, one synchronous segment "
           f"{1e3 * r['wall']:.3f} ms, peak memory {r['peak_gb']:.2f} GB; "
@@ -3047,6 +3207,7 @@ def main() -> None:
     xff_row = phase_xf_f32(dev)
     lev_rows = phase_lev(dev)
     q15_row = phase_q15(dev)
+    carry_rows = phase_carry(dev, built.get("carry", {}).get("registers"))
     main_path = phase_main(dev, card)
     phase_card_vs_cpu(dev)
     q28 = phase_q28_main(dev, card, 16, record=True)
@@ -3144,7 +3305,7 @@ def main() -> None:
                      (lane_row, "eq_q28_lane_cf"),
                      (sched_row, "eq_q28_sched"), (xf_row, "xf_q28"),
                      (eqf_row, "eq_f32"), (xff_row, "xf_f32"),
-                     *((r, r["name"]) for r in lev_rows)):
+                     *((r, r["name"]) for r in lev_rows + carry_rows)):
         row["launches_by_path"] = {p: n.get(key, 0) for p, n in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     q15_row["launches_by_path"] = {
@@ -3188,7 +3349,7 @@ def main() -> None:
         "firmware_oracles": oracle}, "fuzz": fuzz}), flush=True)
     print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
                                   xf_row, eqf_row, xff_row, *lev_rows,
-                                  q15_row]}),
+                                  q15_row, *carry_rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

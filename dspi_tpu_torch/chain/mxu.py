@@ -65,13 +65,21 @@ Precision.HIGHEST (its reduced form measured 28x over the 1e-6 budget
 there).  ``require_fp32``
 sets both; each product checks them first.
 
-``COUNTS["carry_steps"]`` counts the steps of the sequential carries
-(``_apply_blocked``'s loop over packets and ``env_packet_ends``'), as
+The sequential carries (``_apply_blocked``'s state walk over the packets
+and ``env_packet_ends``' recurrence) run through ``kernels.carry_cuda``:
+on a card each is one launch of ``csrc/carry.cu``'s kernels (``carry``,
+``env_carry``), so a segment of the headline chain takes five (the two
+master channels, the crossfeed, the batched outputs, the envelope); on
+the CPU each is its plain version, a loop of PyTorch ops a step.
+``COUNTS["carry_steps"]`` counts the steps of the plain loops, the loop
+length that the host's dispatch walks through, and
+``COUNTS["carry_kernel_steps"]`` those run inside the kernels, as
 ``kernels.LAUNCHES`` counts launches: a 48 kHz segment of 128 packets
-takes 4 x 128 + 128 = 640, a 44.1 kHz one of 130 packets, re-blocked to
-147 blocks of 39, 4 x 147 + 130 = 718.  The work a schedule adds (the
-padded packet grid's gathers, its weights and packet ends) runs in the
-span ``dspi.sched``, which a uniform segment never opens.
+takes 4 x 128 + 128 = 640 steps, a 44.1 kHz one of 130 packets,
+re-blocked to 147 blocks of 39, 4 x 147 + 130 = 718.  The work a
+schedule adds (the padded packet grid's gathers, its weights and packet
+ends) runs in the span ``dspi.sched``, which a uniform segment never
+opens.
 """
 
 from __future__ import annotations
@@ -84,6 +92,7 @@ import numpy as np
 import torch
 
 from ..core.packets import _pattern_len, _pkts_to_flat
+from ..kernels.carry_cuda import carry, env_carry
 from ..kernels.eq_f32 import band_step_f32 as _band_step_f32
 from ..kernels.eq_f32 import svf_general_f32 as _svf_general_f32
 from ..runtime.telemetry import span
@@ -93,6 +102,12 @@ from .layout import _chain_structure
 _F32 = torch.float32
 
 COUNTS: Counter = Counter()
+
+
+def _count_steps(n: int, t: torch.Tensor):
+    """Count ``n`` steps of a carry on ``t``'s device: the kernel's on a
+    card, the plain loop's (host-dispatched, one step at a time) else."""
+    COUNTS["carry_kernel_steps" if t.is_cuda else "carry_steps"] += n
 
 
 def require_fp32():
@@ -303,8 +318,9 @@ def _apply_blocked(M: Split, lay: Layout, x_pkts, s0, groups=None):
     x_pkts [Npkt, (Go,) Cx, B]; s0 [(Go,) S, B]; M's tensors carry the
     leading axes ``Split`` names.  With ``groups`` = K, M carries a group
     axis and lane b belongs to group b // (B / K).  The input responses
-    run as two batched products over the whole segment; the loop over
-    packets carries only the state.  Returns (sF, y [Npkt, (Go,) Ry, B])."""
+    run as two batched products over the whole segment; the walk over
+    packets carries only the state, ``kernels.carry_cuda.carry`` (one
+    launch on a card).  Returns (sF, y [Npkt, (Go,) Ry, B])."""
     _check_fp32()
     N = x_pkts.shape[0]
     if groups:
@@ -318,16 +334,8 @@ def _apply_blocked(M: Split, lay: Layout, x_pkts, s0, groups=None):
     else:                             # one shared matrix, or one a packet
         y = torch.matmul(M.Tx, x_pkts)
         vx = torch.matmul(M.V, x_pkts)
-    s = s0
-    COUNTS["carry_steps"] += N
-    for k in range(N):
-        if lay.uniform:
-            U, W = M.U, M.W
-        else:
-            j = k % p if p else k
-            U, W = M.U[j], M.W[j]
-        y[k] += torch.matmul(U, s)
-        s = vx[k] + torch.matmul(W, s)
+    _count_steps(N, y)
+    s = carry(y, vx, s0.contiguous(), M.U, M.W)    # s0: a view if grouped
     if groups:
         return _from_groups(s, 0), _from_groups(y, 1)
     return s, y
@@ -395,7 +403,9 @@ def env_packet_ends(static, p, st, bl, br, Npkt):
     with the firmware's denormal flush at every packet boundary.  A
     scheduled chain keeps its real packet grid (padded samples weigh 0);
     a per-lane alpha ([B], grouped serving) weighs each lane with its own.
-    Returns (env_l, env_r) [Npkt, B]."""
+    The recurrence over the packet ends is ``kernels.carry_cuda.env_carry``
+    (one launch on a card, both channels).  Returns (env_l, env_r)
+    [Npkt, B]."""
     _check_fp32()
     lay = sched_layout(static, Npkt)
     sched, Tmax = lay.sched, lay.tmax
@@ -428,17 +438,8 @@ def env_packet_ends(static, p, st, bl, br, Npkt):
     else:
         cl = torch.matmul(w[:, None], y2l * y2l)[:, 0]
         cr = torch.matmul(w[:, None], y2r * y2r)[:, 0]
-    el, er = st.lev_env[0], st.lev_env[1]
-    out_l, out_r = [], []
-    COUNTS["carry_steps"] += Npkt
-    for k in range(Npkt):
-        el = aT[k] * el + cl[k]
-        er = aT[k] * er + cr[k]
-        el = torch.where(el < 1e-30, torch.zeros_like(el), el)
-        er = torch.where(er < 1e-30, torch.zeros_like(er), er)
-        out_l.append(el)
-        out_r.append(er)
-    return torch.stack(out_l), torch.stack(out_r)
+    _count_steps(Npkt, cl)
+    return env_carry(aT, cl, cr, st.lev_env[0], st.lev_env[1])
 
 
 # ----------------------------------------------------------------------------

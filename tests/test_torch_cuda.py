@@ -927,3 +927,180 @@ def test_q28_segment_q15_on_card_equals_cpu(path):
     for f, a, b in zip(engs[1].state._fields, engs[0].state, engs[1].state):
         assert (a is None) == (b is None), f
         assert a is None or torch.equal(a.cpu(), b), f
+
+
+def _carry_case(N, A, Ry, S, G, P, seed):
+    """Carry arguments on the card: y [N, *A, Ry, G], vx [N, *A, S, G] and
+    s0 [*A, S, G] of unit scale; U [(P,) *A, Ry, S] and W with a spectral
+    norm of 0.99 (a stable state map whose state rings over the whole
+    segment), P matrices on a step axis, or one (P None)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if P is None else (P,)
+    W = torch.randn((*lead, *A, S, S), generator=gen, device="cuda")
+    W *= 0.99 / torch.linalg.matrix_norm(W, ord=2)[..., None, None]
+    U = torch.randn((*lead, *A, Ry, S), generator=gen, device="cuda") / S**.5
+    y = torch.randn((N, *A, Ry, G), generator=gen, device="cuda")
+    vx = torch.randn((N, *A, S, G), generator=gen, device="cuda")
+    s0 = torch.randn((*A, S, G), generator=gen, device="cuda")
+    return y, vx, s0, U.contiguous(), W.contiguous()
+
+
+def _rel_rms(got, want):
+    return float((got.double() - want.double()).pow(2).mean().sqrt()
+                 / want.double().pow(2).mean().sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,A,Ry,S,G,P", [
+    (128, (), 48, 24, 16384, None),       # chain A, a master channel
+    (128, (), 96, 4, 16384, None),        # the crossfeed
+    (128, (9,), 48, 20, 16384, None),     # the batched outputs
+    (147, (), 39, 24, 16384, None),       # 44.1 kHz: 147 blocks of 39
+    (147, (9,), 39, 20, 16384, None),
+    (128, (8,), 48, 24, 2176, None),      # grouped, K = 8 at 17,408 lanes
+    (128, (8, 9), 48, 20, 2176, None),
+    (130, (), 45, 24, 16384, 10),         # a periodic schedule, p = 10
+    (130, (8,), 90, 4, 2176, 10),
+    (40, (), 45, 28, 4099, 40),           # one matrix a packet
+    (3, (3,), 7, 2, 1, 3)])
+def test_carry_kernel_equals_plain(N, A, Ry, S, G, P):
+    """The matrix carry's kernel against its plain version (cuBLAS
+    products a step) on the card, at the cells' shapes and in the
+    layouts no cell runs: y and sF within 1e-6 relative RMS, room for
+    another summation order than the kernel's (an H100 read 0: cuBLAS's
+    products matched it bit for bit, PERF.md §6); one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    from dspi_tpu_torch.kernels.carry_cuda import carry, carry_plain
+
+    y, vx, s0, U, W = _carry_case(N, A, Ry, S, G, P, seed=N * G + S)
+    want_y = y.clone()
+    want_s = carry_plain(want_y, vx, s0, U, W)
+    n0 = LAUNCHES["carry"]
+    got_s = carry(y, vx, s0, U, W)
+    torch.cuda.synchronize()
+    assert LAUNCHES["carry"] == n0 + 1
+    assert got_s.shape == want_s.shape
+    assert _rel_rms(y, want_y) < 1e-6
+    assert _rel_rms(got_s, want_s) < 1e-6
+
+
+def _env_case(npkt, B, alpha, seed):
+    """Envelope carry arguments on the card around the flush threshold
+    (weighted sums and start values at 0, denormal, float32(1e-30) and its
+    neighbours, 1e-31, 1e-29), as ``env_packet_ends`` passes them: aT an
+    expanded scalar ("uniform"), [Npkt] (the padded grid), [Npkt, B]
+    expanded from [B] ("lane") or [Npkt, B] ("lane_grid")."""
+    t = float(np.float32(1e-30))
+    edges = torch.tensor([0.0, -0.0, 1e-45, t, float(np.nextafter(
+        np.float32(t), np.float32(0))), float(np.nextafter(
+            np.float32(t), np.float32(1))), 1e-31, 1e-29, 0.25, 1.0],
+        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def pick(*shape):
+        i = torch.randint(0, len(edges), shape, generator=gen, device="cuda")
+        return (edges[i] * torch.rand(shape, generator=gen, device="cuda")
+                .round()).contiguous()
+
+    cl, cr, el0, er0 = pick(npkt, B), pick(npkt, B), pick(B), pick(B)
+    a = torch.rand((npkt, B), generator=gen, device="cuda")
+    aT = {"uniform": a[0, 0].expand(npkt), "grid": a[:, 0].contiguous(),
+          "lane": a[0].expand(npkt, B), "lane_grid": a}[alpha]
+    return aT, cl, cr, el0, er0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npkt,B,alpha", [
+    (128, 16384, "uniform"), (130, 16384, "grid"), (128, 17408, "lane"),
+    (130, 17408, "lane_grid"), (5, 3, "lane")])
+def test_env_carry_kernel_equals_plain(npkt, B, alpha):
+    """The envelope carry's kernel equals its plain version bit for bit
+    (on the card and on the CPU), on the uniform grid and the padded one,
+    with one alpha and per lane, across the flush."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    from dspi_tpu_torch.kernels.carry_cuda import env_carry, env_carry_plain
+
+    args = _env_case(npkt, B, alpha, seed=npkt + B)
+    n0 = LAUNCHES["env_carry"]
+    got = env_carry(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["env_carry"] == n0 + 1
+    for want in (env_carry_plain(*args),
+                 env_carry_plain(*(v.cpu() for v in args))):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32),
+                               w.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float64", "device", "odd_s", "contiguous",
+                                 "env_float64", "env_device"])
+def test_carry_kernel_refuses(bad):
+    """On the card the wrappers raise, and launch nothing, on float64
+    (which the CPU's plain version takes), a tensor left on the CPU, an odd
+    state size and a non-contiguous tensor: never the plain loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch.kernels.carry_cuda import carry, env_carry
+
+    args = list(_carry_case(4, (2,), 5, 5 if bad == "odd_s" else 6, 8,
+                            None, seed=1))
+    env = list(_env_case(4, 8, "lane_grid", seed=1))
+    if bad == "float64":
+        args = [v.double() for v in args]
+    elif bad == "device":
+        args[1] = args[1].cpu()
+    elif bad == "contiguous":
+        args[0] = args[0].transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif bad == "env_float64":
+        env = [v.double() for v in env]
+    elif bad == "env_device":
+        env[3] = env[3].cpu()
+    n0 = LAUNCHES["carry"], LAUNCHES["env_carry"]
+    with pytest.raises((TypeError, ValueError)):
+        if bad.startswith("env"):
+            env_carry(*env)
+        else:
+            carry(*args)
+    assert (LAUNCHES["carry"], LAUNCHES["env_carry"]) == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,n_packets,steps", [(48000.0, 128, 640),
+                                                  (44100.0, 130, 718)])
+def test_block_segment_carries_in_five_launches(rate, n_packets, steps):
+    """One segment of the headline float chain at the cells' packet counts
+    on the card: 5 carry launches (4 ``carry``: the master channels, the
+    crossfeed, the outputs; 1 ``env_carry``), ``carry_kernel_steps`` grows
+    by the layout's 640 / 718 and ``carry_steps`` by 0 (an engagement of
+    100%); against the same segment on the CPU, out and s24 within 1e-6
+    relative RMS and peaks within 1 LSB, the float chain's card-vs-CPU
+    budget (chip_smoke.py's ``float_close``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, mxu, packet_geometry
+    from dspi_tpu_torch.configs import full_chain_config
+
+    B = 16
+    block, sched = packet_geometry(rate, n_packets)
+    engs = [Engine(full_chain_config(Platform.RP2350, rate), n_streams=B,
+                   block_size=block, schedule=sched, pdm=False, emit="full",
+                   device=d) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(23)
+    shape = (2, sum(sched), B) if sched else (n_packets, 2, block, B)
+    x = rng.integers(-16000, 16000, size=shape).astype(np.int32)
+    n0 = (LAUNCHES["carry"], LAUNCHES["env_carry"],
+          mxu.COUNTS["carry_kernel_steps"], mxu.COUNTS["carry_steps"])
+    gpu = engs[0].process(x)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["carry"], LAUNCHES["env_carry"],
+            mxu.COUNTS["carry_kernel_steps"], mxu.COUNTS["carry_steps"]) \
+        == (n0[0] + 4, n0[1] + 1, n0[2] + steps, n0[3])
+    cpu = engs[1].process(x)
+    for key in ("out", "s24"):
+        err = _rel_rms(gpu[key].cpu(), cpu[key])
+        assert err < 1e-6, (key, err)
+    assert (gpu["peaks"].cpu() - cpu["peaks"]).abs().max() <= 1
