@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from ..runtime.telemetry import span
 from . import LAUNCHES, build
 from .eq import check_cascade_args, packet_ends, q28_cascades_plain
 
@@ -41,8 +42,10 @@ def launch(fn, x, cf, s0, scal, *, nb, has_loud=False, has_env=False,
            if has_env else None)
     s_out = torch.empty_like(s0)
     # a schedule's packet ends go to the kernel; uniform packets need none
-    ends_t = (torch.tensor(ends, dtype=_I32, device=x.device)
-              if has_env and sched else None)
+    ends_t = None
+    if has_env and sched:
+        with span("dspi.sched"):
+            ends_t = torch.tensor(ends, dtype=_I32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), cf.data_ptr(), s0.data_ptr(), scal.data_ptr(),

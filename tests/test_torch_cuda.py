@@ -434,6 +434,40 @@ def test_chained_runner_on_card_equals_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sched", [None, (44,) * 9 + (45,)],
+                         ids=["uniform", "cadence"])
+def test_eq_q28_schedule_upload_opens_the_sched_span(sched):
+    """A Q28 cascade call with the envelope on a packet schedule uploads
+    its packet ends inside ``dspi.sched``; one on uniform packets uploads
+    none and opens no such span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
+    from torch.profiler import ProfilerActivity, profile
+
+    G, nb, B, tc = 2, 10, 64, 45
+    T = sum(sched) if sched else 2 * tc
+    nr = 2 + nb
+    rng = np.random.default_rng(441)
+    x = rng.integers(-2**31, 2**31, size=(G, T, B), dtype=np.int64)
+    cf = rng.integers(-(1 << 27), 1 << 27, size=(G, nr, 5)) >> 2
+    s0 = np.zeros((G, 2 * nr + 1, B))
+    a_rms = 260000000 - 9999999 * np.arange(G)
+    scal = np.stack([np.zeros(G), np.zeros(G), a_rms, (1 << 28) - a_rms],
+                    axis=1)
+    args = [torch.from_numpy(v.astype(np.int32)).cuda()
+            for v in (x, cf, s0, scal)]
+    kw = dict(nb=nb, has_loud=True, has_env=True, tc=tc, sched=sched)
+    q28_cascades(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        q28_cascades(*args, **kw)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert ("dspi.sched" in names) == (sched is not None)
+
+
+@pytest.mark.cuda
 def test_a_span_has_no_device_side_twin():
     """A span (``runtime.telemetry.span``) under a profile with CUDA
     activity is one host event: no ``dspi.*`` device event, so a trace's

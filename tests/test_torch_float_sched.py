@@ -252,16 +252,24 @@ def test_carry_steps_count_the_layouts_steps(rate, n_packets, steps,
     assert mxu.COUNTS["carry_steps"] - before == 2 * steps
 
 
-@pytest.mark.parametrize("rate", [44100.0, 48000.0])
-def test_sched_span_opens_only_on_a_schedule(rate):
-    """A profiled segment opens ``dspi.sched`` on the 44/45 cadence, and
-    none at 48 kHz, whose segment runs no schedule work."""
-    block, sched = packet_geometry(rate, 10)
-    eng = Engine(full_chain_config(Platform.RP2350, rate), 2,
+@pytest.mark.parametrize("platform,rate,geometry", [
+    (Platform.RP2350, 44100.0, None), (Platform.RP2350, 48000.0, None),
+    (Platform.RP2040, 44100.0, (3, (2, 3), 2)),
+    (Platform.RP2040, 48000.0, (3, None, 2))],
+    ids=["44100.0", "48000.0", "rp2040-44100.0", "rp2040-48000.0"])
+def test_sched_span_opens_only_on_a_schedule(platform, rate, geometry):
+    """A profiled segment of either chain opens ``dspi.sched`` on a packet
+    schedule (the float chain's 44/45 cadence), and none on uniform
+    packets (48 kHz), whose segment runs no schedule work.  The Q28
+    chain's plain sample loops leave ~0.4 s of profiler events a sample,
+    so its cases take two packets of a few samples: (block, schedule,
+    packets)."""
+    block, sched, npkt = geometry or (*packet_geometry(rate, 10), 10)
+    eng = Engine(full_chain_config(platform, rate), 2,
                  block_size=block, schedule=sched, pdm=False,
                  emit="reduced", device="cpu")
     x = (np.zeros((2, sum(sched), 2), np.int32) if sched
-         else np.zeros((10, 2, block, 2), np.int32))
+         else np.zeros((npkt, 2, block, 2), np.int32))
     eng.process(x)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:

@@ -9,7 +9,10 @@ smoothed gain, which XLA:CPU computes with a fused multiply-add; held to
 1e-5 relative as in ``tests/test_torch_multi.py``), and the outputs, PDM
 words and the whole leveller state equal to the golden model's; for the
 periodic cadence and for a schedule with one-sample packets, and across
-``update_config`` 48 -> 44.1 -> 48 kHz.
+``update_config`` 48 -> 44.1 -> 48 kHz.  The benchmark's ``rp2040_44k1``
+deployment, built from its configuration file, is held to the benchmark's
+own golden model (``benchmark/reference``, which imports neither JAX nor
+the port): every output word, PDM word and state word.
 """
 
 import functools
@@ -19,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.reference import config as ref_config
+from benchmark.reference import lanes as ref_lanes
 from dspi_tpu import Platform as JPlatform
 from dspi_tpu.chain import Engine as JEngine
 from dspi_tpu.chain import packet_geometry as jpacket_geometry
@@ -28,6 +33,7 @@ from dspi_tpu_torch import Platform
 from dspi_tpu_torch.chain import Engine, packet_geometry, pipeline
 from dspi_tpu_torch.configs import full_chain_config
 from dspi_tpu_torch.core import packets
+from dspi_tpu_torch.params import types as program_types
 
 from test_torch_multi import assert_state_matches_jax
 from test_torch_pack import _convert
@@ -99,10 +105,57 @@ def test_engine_44k1_matches_jax(name):
     assert_state_matches_jax(te.state, js)
 
 
-@pytest.mark.parametrize("name", list(SCHEDULES))
+def _run_deployment(name):
+    """The benchmark's deployment ``name``, built from its configuration
+    file on both sides, over three chained segments of one 441-sample
+    group at 4 seeded streams with a preset-mute dip in segment 1: the
+    port's CPU path and the reference's golden instances fed the same
+    packets."""
+    spec = ref_config.load(name)
+    n = 4
+    block, sched = packet_geometry(spec["device"]["sample_rate"], 10)
+    te = Engine(ref_config.build(spec, program_types), n_streams=n,
+                block_size=block, schedule=sched, emit="full", pdm=True,
+                pdm_fade=False, device="cpu")
+    golds = [ref_lanes.device_for(spec) for _ in range(n)]
+    rng = np.random.default_rng(0x2040441)
+    outs, gold = [], []
+    for seg in range(3):
+        x = rng.integers(-16000, 16000,
+                         size=(2, sum(sched), n)).astype(np.int32)
+        mute = _mute(len(sched), seg == 1)
+        outs.append({k: _np(v) for k, v in te.process(x, mute).items()})
+        gold.append(_golden_feed(golds, x, sched, mute))
+    return outs, te, gold, golds, block
+
+
+def _assert_reference_state(te, golds, block):
+    """Every leaf of the port's state equal to the reference's instances',
+    in the port's layout (``lev_gain_db`` bit for bit as float32)."""
+    want = [ref_lanes.golden_state(g, block) for g in golds]
+    for f, v in zip(te.state._fields, te.state):
+        if f not in want[0] or want[0][f] is None:
+            continue
+        w = np.stack([np.asarray(r[f]) for r in want], axis=-1)
+        got = _np(v)
+        if f == "lev_gain_db":
+            got, w = got.view(np.int32), w.astype(np.float32).view(np.int32)
+        np.testing.assert_array_equal(
+            got.astype(np.int64) & 0xFFFFFFFF,
+            w.astype(np.int64) & 0xFFFFFFFF, err_msg=f)
+
+
+@pytest.mark.parametrize("name", [*SCHEDULES, "rp2040_44k1"])
 def test_engine_44k1_matches_golden(name):
-    outs, _, te, gold, golds = _run(name)
-    for seg, (_, to) in enumerate(outs):
+    if name in SCHEDULES:
+        outs, _, te, gold, golds = _run(name)
+        outs = [to for _, to in outs]
+    else:
+        outs, te, gold, golds, block = _run_deployment(name)
+        assert te.static.schedule == (44,) * 9 + (45,)
+        assert np.abs(outs[-1]["out"]).max() > 1 << 20
+        _assert_reference_state(te, golds, block)
+    for seg, to in enumerate(outs):
         want = np.stack([np.concatenate([np.asarray(p["buf_out"])
                                          for p in per], axis=-1)
                          for per in gold[seg]], axis=-1)
