@@ -64,7 +64,13 @@ Phases (each prints one line; any failure exits non-zero):
      the crossfeed and the 9 batched outputs at 48 kHz and on the 44.1
      kHz cell's 147 blocks of 39, within 1e-6 of its plain version on the
      card, and ``env_carry`` bit for bit on the uniform and the padded
-     packet grid; each timed beside its byte bound and the plain loop
+     packet grid; each timed beside its byte bound and the plain loop.
+     Then the segment tail (tail.cu: output gains, delay lines, peaks, s24
+     words and sums, the sub's Q28) vs its plain version on the card,
+     word for word, on the float chain's 9 outputs and the Q28 chain's 5
+     at 6144 x 16384, on the 44/45 schedule's ends at 5733 x 16384 and
+     with per-lane gains at 6144 x 17408; each timed beside its byte bound
+     and the plain version's time on the card
   6. the float main path at full width: Engine on the headline RP2350
      chain at 48 kHz, 16384 streams, 4 chained segments of 128 packets x 48
      samples with state carried and a fresh input each (x ^ i); launch
@@ -78,8 +84,9 @@ Phases (each prints one line; any failure exits non-zero):
   8. the Q28 main path at full width: Engine on the RP2040 headline chain
      (full_chain_config, 7 channels), the same geometry, 16- and 24-bit
      input, 4 chained segments each; fails unless a segment launches the
-     cascade kernel twice, the crossfeed, leveller, PDM and Q15 mix
-     kernels once and the Q15 gain kernel five times.  Then the cascade, crossfeed and PDM kernels alone, on the
+     cascade kernel twice, the crossfeed, leveller, PDM, Q15 mix and
+     segment tail kernels once (no Q15 gain kernel: the tail applies the
+     output gains).  Then the cascade, crossfeed and PDM kernels alone, on the
      very arguments the path gave them, timed with CUDA events, beside
      their bounds (the crossfeed's from XF_OPS, the PDM kernel's from
      PDM_OPS and the per-lane cascade's from EQ_LANE_OPS, with the build's
@@ -245,16 +252,16 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # build.NVCC_FLAGS for sm_90a, read with compare_kernels.py.  The new
 # builds' own counts, a stream-sample, are printed beside them.
 # every main path runs the leveller: its two kernels (lev.cu, the packet
-# gains and the sample pass) and the PDM modulator launch once a segment
-# each
-LEV_PDM = {"lev_gain": 1, "lev_apply": 1, "pdm": 1}
+# gains and the sample pass), the segment tail (tail.cu) and the PDM
+# modulator launch once a segment each
+LEV_PDM = {"lev_gain": 1, "lev_apply": 1, "pdm": 1, "tail": 1}
 # a float block-lowering segment adds its carries (carry.cu): the state
 # walk of the two master channels, the crossfeed and the batched outputs,
 # and the leveller envelope's packet ends
 FLOAT_BLOCK = {**LEV_PDM, "carry": 4, "env_carry": 1}
-# the Q28 chain's Q15 products: the matrix mix once a segment, an output
-# gain once a live output (the RP2040 headline chain's 5)
-Q15 = {"q15_mix": 1, "q15_gain": 5}
+# the Q28 chain's Q15 products: the matrix mix once a segment (the output
+# gains' products are the segment tail's)
+Q15 = {"q15_mix": 1}
 PIPE_OPS_PER_SM_CLOCK = 64
 ISSUE_PER_SM_CLOCK = 128
 # multiplies of two run-time values each function needs: fast_mul_q28 is
@@ -405,7 +412,7 @@ def phase_build() -> dict:
                          "max_registers": max(regs.values()),
                          "spill_bytes": spill,
                          "seconds": round(r["seconds"], 1)}
-        if name == "carry":
+        if name in ("carry", "tail"):
             summary[name]["registers"] = regs
         if name == "eq_q28":
             # the instances the q28 and hetero paths launch
@@ -1495,6 +1502,125 @@ def _q15_args(gen, T, B, lane, sched, dev):
         lengths, ends = np.full(T // BLOCK, BLOCK), None
     return (plane(), plane(), gains(2, 5, B) if lane else gains(2, 5),
             gains(len(lengths), B if lane else 1), ends)
+
+
+TAIL_CASES = (("float", STREAMS, False, False), ("q28", STREAMS, False, False),
+              ("float", STREAMS, True, False), ("q28", STREAMS, True, False),
+              ("float", 17408, False, True), ("q28", 17408, False, True))
+
+
+def _tail_args(gen, chain, B, sched, lane, dev):
+    """A segment tail call at a cell's shape: the headline configuration's
+    outputs (enabled, muted, delayed; its delays and ring) at 48 kHz on
+    128 packets of 48 samples or at 44.1 kHz on the 44/45 schedule's 130
+    packets; output planes of random samples on the card (float
+    N(0, 0.35), Q28 the same scaled by 2^28); the outputs' gains a packet,
+    the configuration's output gains (Q15 on the Q28 chain), or per lane
+    each spread by up to +-0.2 dB; a ring of random samples.  Returns
+    (arguments, keywords)."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain.pack import build_params, build_static
+    from dspi_tpu_torch.configs import full_chain_config
+    from dspi_tpu_torch.params.design import derive
+
+    plat = Platform.RP2040 if chain == "q28" else Platform.RP2350
+    d = derive(full_chain_config(plat, 44100.0 if sched else RATE))
+    st = build_static(d, BLOCK, schedule=SCHED441 if sched else None,
+                      emit="reduced")
+    p = build_params(d, st)
+    T = sum(SCHED441) if sched else PACKETS * BLOCK
+    npkt = len(SCHED441) if sched else PACKETS
+    nout, nd = st.n_outputs, len(st.delayed_outputs)
+    g = torch.from_numpy(np.asarray(p.out_gain, np.float32)).to(dev)
+    g = g.reshape(nout, 1, 1).expand(nout, npkt, B if lane else 1)
+    if lane:
+        db = 0.4 * torch.rand((1, 1, B), generator=gen, device=dev) - 0.2
+        g = g * torch.pow(10.0, db / 20.0)
+    if chain == "q28":
+        g = (g * 32768.0).to(torch.int32)
+    planes = []
+    for _ in range(nout):
+        x = 0.35 * torch.randn((T, B), generator=gen, device=dev)
+        planes.append(x if chain == "float"
+                      else (x * 2.0**28).to(torch.int32))
+    ring = 0.35 * torch.randn((nd, st.delay_ring, B), generator=gen,
+                              device=dev)
+    if chain == "q28":
+        ring = (ring * 2.0**28).to(torch.int32)
+    ends = (torch.from_numpy(np.cumsum(SCHED441).astype(np.int32)).to(dev)
+            if sched else None)
+    delay = torch.from_numpy(np.asarray(p.delay_samples, np.int32)).to(dev)
+    kw = dict(enabled=st.output_enabled, muted=st.output_mute,
+              delayed=st.delayed_outputs, spdif=2 * st.n_spdif, sub=True)
+    return (planes, g.contiguous(), ends, delay, ring), kw
+
+
+def phase_tail(dev, registers=None) -> dict:
+    """The segment tail (tail.cu) against its plain version on the card,
+    word for word, at the cells' shapes: the float chain's 9 outputs and
+    the Q28 chain's 5 at 6144 x 16384 (128 packets of 48), both at 5733 x
+    16384 on the 44/45 schedule's ends, both at 6144 x 17408 with per-lane
+    gains (the tenants cells); each timed with CUDA events beside its byte
+    bound (each output plane read once, the sub written, the rings read
+    and written: 1.28 ms float, 0.76 ms Q28 at 6144 x 16384) and the plain
+    version's time on the card.  ``registers``: the build's ptxas report
+    by kernel.  Returns the kernel's row."""
+    from dspi_tpu_torch.kernels import LAUNCHES
+    from dspi_tpu_torch.kernels.tail_cuda import (segment_tail,
+                                                  segment_tail_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    calls = []
+    for chain, B, sched, lane in TAIL_CASES:
+        args, kw = _tail_args(gen, chain, B, sched, lane, dev)
+        planes, gains, ends, delay, ring = args
+        T = planes[0].shape[0]
+        n0 = LAUNCHES["tail"]
+        got = segment_tail(*args, **kw)
+        if LAUNCHES["tail"] != n0 + 1:
+            fail("tail: a call did not count one launch")
+        want = segment_tail_plain(*args, **kw)
+        for k, w in want.items():
+            g = got[k]
+            if (g is None) != (w is None) or (w is not None and not (
+                    torch.equal(g.view(torch.int32), w.view(torch.int32)))):
+                fail(f"tail kernel != plain version: {k} ({chain}, [{T}, "
+                     f"{B}], schedule {sched}, per-lane gains {lane})")
+        del got, want
+        ms = cuda_ms(lambda: segment_tail(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: segment_tail_plain(*args, **kw), 2)
+        nout, nd, D = len(planes), ring.shape[0], ring.shape[1]
+        nbytes = 4 * (nout * T * B + T * B + 2 * nd * D * B
+                      + gains.numel() + delay.numel()
+                      + (0 if ends is None else ends.numel())
+                      + 2 * (2 * kw["spdif"] + 1) * B)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        calls.append({"chain": chain, "shape": [nout, T, B],
+                      "schedule": sched, "per_lane_gains": lane, "ms": ms,
+                      "plain_ms": plain_ms, "bytes": nbytes,
+                      "bound_ms": bound_ms,
+                      "pct_of_bound": 100 * bound_ms / ms})
+        print(f"tail {chain} [{nout}, {T}, {B}] (schedule {sched}, per-lane "
+              f"gains {lane}): kernel == plain word for word; kernel "
+              f"{ms:.3f} ms, byte bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f}"
+              f" GB at 3.35 TB/s; {100 * bound_ms / ms:.1f}% of it); plain "
+              f"on the card {plain_ms:.1f} ms", flush=True)
+        del args, planes, ring
+        torch.cuda.empty_cache()
+    regs = {f: n for f, n in (registers or {}).items() if "tail_kernel" in f}
+    print(f"tail: registers by instance {regs}", flush=True)
+    head = calls[0]
+    return {"name": "tail", "route": "cuda",
+            "source": "dspi_tpu_torch/kernels/csrc/tail.cu",
+            "replaces": "dspi_tpu/chain/pipeline.py PASS 5's output gains, "
+                        "delay lines, peaks, s24 conversion and the sub's "
+                        "Q28 (elementwise; no TPU kernel)",
+            "max_abs_err": 0, "plain_ms": head["plain_ms"],
+            "library_ms": None, "equal_to_plain": True,
+            "plain_shape": head["shape"],
+            "kernel_ms_at_plain_shape": head["ms"], "ms": head["ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "calls": calls, "registers": regs}
 
 
 def phase_q15(dev) -> dict:
@@ -3207,6 +3333,7 @@ def main() -> None:
     xff_row = phase_xf_f32(dev)
     lev_rows = phase_lev(dev)
     q15_row = phase_q15(dev)
+    tail_row = phase_tail(dev, built.get("tail", {}).get("registers"))
     carry_rows = phase_carry(dev, built.get("carry", {}).get("registers"))
     main_path = phase_main(dev, card)
     phase_card_vs_cpu(dev)
@@ -3305,6 +3432,7 @@ def main() -> None:
                      (lane_row, "eq_q28_lane_cf"),
                      (sched_row, "eq_q28_sched"), (xf_row, "xf_q28"),
                      (eqf_row, "eq_f32"), (xff_row, "xf_f32"),
+                     (tail_row, "tail"),
                      *((r, r["name"]) for r in lev_rows + carry_rows)):
         row["launches_by_path"] = {p: n.get(key, 0) for p, n in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -3349,7 +3477,7 @@ def main() -> None:
         "firmware_oracles": oracle}, "fuzz": fuzz}), flush=True)
     print(json.dumps({"kernels": [pdm_row, eq_row, lane_row, sched_row,
                                   xf_row, eqf_row, xff_row, *lev_rows,
-                                  q15_row, *carry_rows]}),
+                                  q15_row, *carry_rows, tail_row]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -35,8 +35,10 @@ parameters (``pack.build_params_multi``: any leaf may carry a trailing
 In both, the leveller's block phase is two kernel calls
 (kernels/lev_cuda.py: each packet's gain, then the ramp, lookahead,
 limiter and gain over every sample), the PDM modulator is the CUDA kernel
-(kernels/pdm_cuda.py) and, with ``static.wire``, the s24 samples become
-the S/PDIF or I2S wire words (kernels/encoders.py) on the device.  Which bands run in which cascade,
+(kernels/pdm_cuda.py), the output gains, delay lines, peaks, s24 words
+and the sub's PDM input are one kernel call (kernels/tail_cuda.py) and,
+with ``static.wire``, the s24 samples become the S/PDIF or I2S wire words
+(kernels/encoders.py) on the device.  Which bands run in which cascade,
 and in what order a cascade's states sit, is chain/layout.py's, shared
 with the block lowering; each chain's cascade calls here add only what is
 its number format's: coefficient rows, scalars and the kernel call.
@@ -54,13 +56,14 @@ import numpy as np
 import torch
 
 from ..core import constants as C
-from ..core.qmath import f32_to_i32, q15_mul, q28_mul, q28_to_s24
+from ..core.qmath import f32_to_i32, q15_mul, q28_mul
 from ..kernels import encoders
 from ..kernels.eq_cuda import q28_cascades
 from ..kernels.eq_f32_cuda import f32_cascades
 from ..kernels.lev_cuda import lev_apply, lev_gain
 from ..kernels.pdm_cuda import pdm_segment
-from ..kernels.q15_cuda import q15_gain, q15_mix
+from ..kernels.q15_cuda import q15_mix
+from ..kernels.tail_cuda import segment_tail
 from ..kernels.xf_cuda import xf_f32, xf_q28
 from ..runtime.telemetry import span
 from . import layout, mxu
@@ -78,7 +81,7 @@ _I32 = torch.int32
 
 def _packet_ends(static: StaticChain, sched, dev):
     """A scheduled chain's packet ends, int32 [Npkt] on ``dev`` (the
-    leveller's and the Q15 gains' kernels take them); None for uniform
+    leveller's and the tail's kernels take them); None for uniform
     packets."""
     if not static.schedule:
         return None
@@ -105,59 +108,32 @@ def _leveller(static: StaticChain, p, st, bl, br, env_l, env_r, Ttot, ends):
     return st, bl, br
 
 
-def _delay_apply(ring_k, buf, dly, T, D):
-    """One output's delayed read over a whole segment (usb_audio.c:897-911).
-
-    Rings are time-ordered (oldest first): the delayed stream is a window
-    of concat(ring, buf) starting at D - dly.  ``dly`` stays a device
-    tensor (an index_select, not a host read), so the host never waits on
-    the card here.  A per-stream delay ([B]) reads through one gather over
-    [D+T, B], its index built once.  Returns (delayed [T, B], ring' [D, B])."""
-    comb = torch.cat([ring_k, buf], dim=0)                # [D+T, B]
-    t = torch.arange(T, device=buf.device)
-    start = D - dly.to(torch.int64)
-    if start.dim() == 0:
-        delayed = comb.index_select(0, start + t)
-    else:
-        delayed = torch.gather(comb, 0, start[None, :] + t[:, None])
-    ring_new = buf[T - D:] if T >= D else comb[T:]
-    return delayed, ring_new
-
-
-def _delay_lines(static: StaticChain, p, st, bufs, Ttot):
-    """The delay lines (usb_audio.c:897-911 / 1213-1227): each delayed
-    output's plane of ``bufs`` replaced by its delayed read.  Returns st'
-    with the new rings."""
-    if not static.delayed_outputs:
-        return st
-    rows = []
-    for k, o in enumerate(static.delayed_outputs):
-        bufs[o], ring_k = _delay_apply(st.delay[k], bufs[o],
-                                       p.delay_samples[k], Ttot,
-                                       static.delay_ring)
-        rows.append(ring_k)
-    return st._replace(delay=torch.stack(rows))
-
-
-def _peaks_clip(static: StaticChain, st, peak_ml, peak_mr, bufs, thresh):
-    """The segment's peaks, [nch', B]: the master pair (pre-crossfeed),
-    the S/PDIF outputs and the sub; and the sticky clip flags of those over
+def _tail(static: StaticChain, p, st, bufs, gains, ends, peak_ml, peak_mr,
+          thresh):
+    """PASS 5 after the output EQ, both chains, as one ``segment_tail``
+    call over the output planes ``bufs``: the gains of each packet
+    (``gains`` [nout, Npkt, 1|B]: float32, or Q15 int32), the delay lines,
+    the peaks, the s24 words and sums and the sub's PDM input; then the
+    segment's peaks, [nch', B] (the master pair, pre-crossfeed, the S/PDIF
+    outputs and the sub), and the sticky clip flags of those over
     ``thresh`` (sticky over the segment == sticky per packet).  Returns
-    (st', peaks)."""
-    ns2, nout = static.n_spdif * 2, static.n_outputs
-    peaks = [peak_ml, peak_mr]
-    for o in range(ns2):
-        peaks.append(bufs[o].abs().amax(dim=0))
-    if static.output_enabled[nout - 1]:
-        peaks.append(bufs[nout - 1].abs().amax(dim=0))
-    else:
-        peaks.append(torch.zeros_like(peak_ml))
-    peaks = torch.stack(peaks)
+    (st', the tail's dict, peaks)."""
+    delayed = static.delayed_outputs
+    tail = segment_tail(
+        [b.contiguous() for b in bufs], gains.contiguous(), ends,
+        p.delay_samples.contiguous() if delayed else None,
+        st.delay if delayed else None, enabled=static.output_enabled,
+        muted=static.output_mute, delayed=delayed,
+        spdif=2 * static.n_spdif, sub=static.pdm_on,
+        words=bool(static.wire), full=static.emit == "full")
+    if delayed:
+        st = st._replace(delay=tail["ring"])
+    peaks = torch.cat([torch.stack([peak_ml, peak_mr]), tail["peaks"]])
     clip = st.clip_flags
     for chi in range(peaks.shape[0]):
-        ch_bit = chi if chi < 2 + ns2 else static.n_channels - 1
+        ch_bit = chi if chi < 2 + 2 * static.n_spdif else static.n_channels - 1
         clip = clip | ((peaks[chi] > thresh).to(_I32) << ch_bit)
-    return st._replace(clip_flags=clip), peaks
+    return st._replace(clip_flags=clip), tail, peaks
 
 
 def _segment_layout(static: StaticChain, x):
@@ -175,14 +151,6 @@ def _segment_layout(static: StaticChain, x):
     Npkt, _, T, B = x.shape
     sched = np.full(Npkt, T, np.int64)
     return x.transpose(0, 1).reshape(2, Npkt * T, B), sched, Npkt, Npkt * T
-
-
-def _per_packet(vals, sched, Ttot):
-    """Broadcast a per-packet [Npkt, 1|B] array to [Ttot, 1|B] along the
-    schedule."""
-    with span("dspi.sched"):
-        reps = torch.from_numpy(sched).to(vals.device)
-        return torch.repeat_interleave(vals, reps, dim=0, output_size=Ttot)
 
 
 def _unflatten(arrs, Npkt, T):
@@ -215,9 +183,8 @@ def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None,
     carried in ``ChainState.wire_pos`` so the Z preamble lands every 192
     frames across segments.  The JAX package's ``_wire_stage``.
 
-    ``s24``: one int32 [Ttot, B] tensor a channel; each pair is stacked
-    to [2, Ttot, B] here, so the encoder runs once for both channels, and
-    its entries in the list are set to None.  emit='full' gives
+    ``s24``: int32 [ns2, Ttot, B], the S/PDIF channels' words; the
+    encoder runs once a pair, on its [2, Ttot, B] rows.  emit='full' gives
     'wire{pair}' words ([Ttot, 4, B] S/PDIF, [Ttot, 2, B] I2S, int32 bit
     patterns); emit='reduced' one uint32 fold a pair, 'wire_sum' [npairs]
     in int64 ([npairs, K] with ``groups``: each group's lanes folded on
@@ -226,9 +193,7 @@ def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None,
     pos0 = st.wire_pos
     folds = []
     for pair, typ in enumerate(static.wire):
-        lr = torch.stack([s24[2 * pair], s24[2 * pair + 1]])
-        # the channels are not read again: free them for the pair's words
-        s24[2 * pair] = s24[2 * pair + 1] = None
+        lr = s24[2 * pair:2 * pair + 2]
         if typ == 1:
             planes = (encoders.encode_i2s(lr),)
         else:
@@ -256,49 +221,28 @@ def _wire_stage(static: StaticChain, st, s24, Ttot, outputs, groups=None,
 # ----------------------------------------------------------------------------
 
 
-def _s24_channels(static: StaticChain, bufs, convert, Ttot, B, dev):
-    """S/PDIF conversion (usb_audio.c:934-940 / 1244-1257), one int32
-    [Ttot, B] tensor a channel of the S/PDIF pairs; ``convert`` maps a
-    channel's output buffer to s24."""
-    s24 = []
-    for pair in range(static.n_spdif):
-        lch, rch = pair * 2, pair * 2 + 1
-        on = static.output_enabled[lch] or static.output_enabled[rch]
-        for chn in (lch, rch):
-            s24.append(convert(bufs[chn]) if on else torch.zeros(
-                (Ttot, B), dtype=_I32, device=dev))
-    return s24
-
-
-def _emit_s24(static: StaticChain, outputs, bufs, s24, sched, Npkt):
-    """The s24 outputs: emit='full' 'out' and 's24' ([Npkt, K, T, B], or
-    time-flat [K, Ttot, B] with a schedule); emit='reduced' the per-channel
-    int32 sums (wrapping, as the JAX package's) [ns2, B]."""
+def _s24_wire_pdm(static: StaticChain, st, outputs, tail, sched, Npkt,
+                  Ttot, groups, lanes):
+    """The chain's outputs from the tail's dict (``_tail``): emit='full'
+    'out' and 's24' ([Npkt, K, T, B], or time-flat [K, Ttot, B] with a
+    schedule), emit='reduced' the per-channel s24 sums [ns2, B]; the wire
+    stage, then the PDM modulator on the sub (Q28 int32 [Ttot, B]).  The
+    s24 words are taken out of ``tail`` and freed before the PDM stage,
+    whose words set the segment's peak memory."""
+    s24 = tail.pop("s24")
     if static.emit == "full":
-        out, words = torch.stack(bufs), torch.stack(s24)
+        out, words = tail.pop("out"), s24
         if not static.schedule:
             out, words = (_unflatten(v, Npkt, int(sched[0]))
                           for v in (out, words))
         outputs["out"], outputs["s24"] = out, words
     else:
-        outputs["s24_sum"] = torch.stack([v.sum(dim=0) for v in s24]).to(_I32)
-
-
-def _s24_wire_pdm(static: StaticChain, st, outputs, bufs, convert, sub,
-                  sched, Npkt, Ttot, groups, lanes):
-    """The chain's tail: S/PDIF conversion of the output buffers ``bufs``
-    (``convert`` a channel) and the s24 outputs, the wire stage, then the
-    PDM modulator on the sub output ``sub`` (Q28 int32 [Ttot, B]).  The
-    s24 words are freed before the PDM stage, whose words set the
-    segment's peak memory."""
-    B, dev = bufs[0].shape[-1], bufs[0].device
-    s24 = _s24_channels(static, bufs, convert, Ttot, B, dev)
-    _emit_s24(static, outputs, bufs, s24, sched, Npkt)
+        outputs["s24_sum"] = tail["s24_sum"]
     if static.wire:
         st = _wire_stage(static, st, s24, Ttot, outputs, groups, lanes)
     del s24
     if static.pdm_on:
-        st, words = pdm_segment(st, sub)
+        st, words = pdm_segment(st, tail.pop("sub"))
         if static.emit == "full":
             outputs["pdm"] = words                  # [Ttot, 8, B] uint32 bits
         else:
@@ -454,7 +398,6 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
             raise ValueError("the block-matmul lowering needs its block "
                              "matrices (blocks=mxu.build_blocks(...))")
         x2, sched, Npkt, Ttot = _segment_layout(static, x)
-        B = x2.shape[-1]
         dev = x.device
         nout = static.n_outputs
         master_bands, out_bands = _chain_structure(static)
@@ -462,6 +405,8 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
             preset_mute = torch.ones((Npkt,), dtype=_F32, device=dev)
         st = state._replace(eq_a=state.eq_a.clone(), eq_b=state.eq_b.clone(),
                             eq_c=state.eq_c.clone(), eq_d=state.eq_d.clone())
+        # the leveller's and the tail's packet ends (a schedule's)
+        ends = _packet_ends(static, sched, dev)
 
         with span("dspi.unpack"):
             # per-packet volume staging (usb_audio.c:569-574), [Npkt, 1|B]
@@ -493,7 +438,7 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
         if static.leveller_on:
             with span("dspi.leveller"):
                 st, bl, br = _leveller(static, p, st, bl, br, env_l, env_r,
-                                       Ttot, _packet_ends(static, sched, dev))
+                                       Ttot, ends)
                 del env_l, env_r
 
         with span("dspi.outputs"):
@@ -513,27 +458,14 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
             del bl, br
 
         with span("dspi.tail"):
-            # output gains (usb_audio.c:885-894), per packet through the
-            # preset-mute envelope
-            for o in range(nout):
-                if not static.output_enabled[o]:
-                    continue
-                if static.output_mute[o]:
-                    bufs[o] = torch.zeros_like(bufs[o])
-                    continue
-                gain = p.out_gain[o] * vol_mul_master       # [Npkt, 1|B]
-                if static.schedule:           # [Ttot, 1|B] along the packets
-                    gain = _per_packet(gain, sched, Ttot)
-                    y = bufs[o]
-                else:                         # [Npkt, 1, 1|B]
-                    gain = gain[:, None, :]
-                    y = bufs[o].reshape(Npkt, -1, B)
-                bufs[o] = torch.where(gain == 0.0, torch.zeros_like(y),
-                                      y * gain).reshape(Ttot, B)
-
-            st = _delay_lines(static, p, st, bufs, Ttot)
-            st, peaks = _peaks_clip(static, st, peak_ml, peak_mr, bufs,
-                                    C.CLIP_THRESH_F)
+            # output gains (usb_audio.c:885-894): every output's gain of
+            # each packet through the preset-mute envelope, one product,
+            # [nout, Npkt, 1|B]; the tail kernel applies them
+            gains = p.out_gain.reshape(nout, 1, -1) * vol_mul_master
+            st, tail, peaks = _tail(static, p, st, bufs, gains, ends,
+                                    peak_ml, peak_mr, C.CLIP_THRESH_F)
+            # dead from here: freed before the PDM stage
+            del bufs, gains
 
         with span("dspi.wire"):
             outputs = {}
@@ -541,13 +473,9 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
             # trunc(min(1,peak)*32767)
             outputs["peaks"] = (torch.clamp(peaks, max=1.0)
                                 * 32767.0).trunc().to(torch.int32)
-            sub = (f32_to_i32(bufs[nout - 1] * float(1 << 28)) if static.pdm_on
-                   else None)
-            # S/PDIF conversion (usb_audio.c:934-940)
-            st = _s24_wire_pdm(
-                static, st, outputs, bufs,
-                lambda v: f32_to_i32(v.clamp(-1.0, 1.0) * 8388607.0), sub,
-                sched, Npkt, Ttot, groups, wire_lanes)
+            # S/PDIF words (usb_audio.c:934-940) and the sub: the tail's
+            st = _s24_wire_pdm(static, st, outputs, tail, sched, Npkt, Ttot,
+                               groups, wire_lanes)
         return st, outputs
 
 
@@ -714,30 +642,21 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
                 st, bufs = _q28_outeq(static, p, st, bufs, out_bands, sched)
 
         with span("dspi.tail"):
-            # output gains (usb_audio.c:1203-1212): float multiply, every
-            # output's at once ([nout, Npkt, 1|B]), then Q15 apply per
-            # packet, one kernel launch an output, in place on the output's
-            # own plane (a zero gain needs no branch: q15_mul(x, 0) == 0)
+            # output gains (usb_audio.c:1203-1212): the float multiply,
+            # every output's at once ([nout, Npkt, 1|B]); the tail kernel
+            # applies them as Q15 products (a zero gain needs no branch:
+            # q15_mul(x, 0) == 0)
             gains = f32_to_i32(p.out_gain.reshape(nout, 1, -1)
                                * vol_mul_master.to(_F32))
-            for o in range(nout):
-                if not static.output_enabled[o]:
-                    continue
-                if static.output_mute[o]:
-                    bufs[o] = torch.zeros_like(bufs[o])
-                    continue
-                bufs[o] = q15_gain(bufs[o].contiguous(), gains[o], ends)
-            del gains, ends
-
-            st = _delay_lines(static, p, st, bufs, Ttot)
-            st, peaks = _peaks_clip(static, st, peak_ml, peak_mr, bufs,
-                                    C.CLIP_THRESH_Q28)
+            st, tail, peaks = _tail(static, p, st, bufs, gains, ends,
+                                    peak_ml, peak_mr, C.CLIP_THRESH_Q28)
+            # dead from here: freed before the PDM stage
+            del bufs, gains, ends
 
         with span("dspi.wire"):
             # peak u16 conversion (usb_audio.c:1239): peak >> 13
             outputs = {"peaks": (peaks >> 13) & 0xFFFF}
-            # S/PDIF conversion (usb_audio.c:1244-1257)
-            st = _s24_wire_pdm(static, st, outputs, bufs, q28_to_s24,
-                               bufs[nout - 1], sched, Npkt, Ttot, groups,
-                               wire_lanes)
+            # S/PDIF words (usb_audio.c:1244-1257) and the sub: the tail's
+            st = _s24_wire_pdm(static, st, outputs, tail, sched, Npkt, Ttot,
+                               groups, wire_lanes)
         return st, outputs

@@ -32,7 +32,8 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # the sources built as they are; eq_f32.cu needs a signature's defines
-SOURCES = ("pdm", "eq_q28", "xf_q28", "xf_f32", "lev", "q15", "carry")
+SOURCES = ("pdm", "eq_q28", "xf_q28", "xf_f32", "lev", "q15", "carry",
+           "tail")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -160,7 +160,7 @@ def wire_trace(eng, x) -> None:
     fn, saved = pipeline._wire_stage, {}
 
     def grab(static, st, s24, *rest):
-        saved.update(static=static, st=st, s24=list(s24), rest=rest)
+        saved.update(static=static, st=st, s24=s24, rest=rest)
         return fn(static, st, s24, *rest)
 
     pipeline._wire_stage = grab
@@ -171,8 +171,8 @@ def wire_trace(eng, x) -> None:
 
     def call():
         Ttot, _, *rest = saved["rest"]
-        return fn(saved["static"], saved["st"], list(saved["s24"]), Ttot,
-                  {}, *rest)
+        return fn(saved["static"], saved["st"], saved["s24"], Ttot, {},
+                  *rest)
 
     class Bytes(TorchDispatchMode):
         def __init__(self):

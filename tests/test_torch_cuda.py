@@ -922,7 +922,9 @@ def test_q28_segment_q15_on_card_equals_cpu(path):
     """Two Q28 segments at 256 streams on the card and on the CPU, every
     output and state word equal: the headline chain, HeteroServer over
     two tenants with their own matrices (per-lane mix and gain gains) and
-    the 44/45 schedule; one mix and five gain launches a segment."""
+    the 44/45 schedule; one mix launch and one segment tail launch a
+    segment, and no Q15 gain launch: the output gains' Q15 products are
+    the tail kernel's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from dspi_tpu_torch import Platform
@@ -953,7 +955,8 @@ def test_q28_segment_q15_on_card_equals_cpu(path):
         gpu = engs[0].process(x)
         torch.cuda.synchronize()
         assert LAUNCHES["q15_mix"] - n0.get("q15_mix", 0) == 1
-        assert LAUNCHES["q15_gain"] - n0.get("q15_gain", 0) == 5
+        assert LAUNCHES["q15_gain"] - n0.get("q15_gain", 0) == 0
+        assert LAUNCHES["tail"] - n0.get("tail", 0) == 1
         cpu = engs[1].process(x)
         assert set(gpu) == set(cpu)
         for key in cpu:
@@ -1138,3 +1141,153 @@ def test_block_segment_carries_in_five_launches(rate, n_packets, steps):
         err = _rel_rms(gpu[key].cpu(), cpu[key])
         assert err < 1e-6, (key, err)
     assert (gpu["peaks"].cpu() - cpu["peaks"]).abs().max() <= 1
+
+
+# ---------------------------------------------------------- the segment tail
+
+CADENCE = (44,) * 9 + (45,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["float", "q28"])
+@pytest.mark.parametrize("sched,gain_lane,dly_lane,T,B,mode", [
+    (False, False, False, 1536, 512, "reduced"),
+    (CADENCE, False, False, 882, 256, "reduced"),
+    (False, True, False, 960, 384, "full"),
+    (CADENCE, True, True, 882, 256, "full"),
+    (False, True, False, 480, 4101, "full"),
+    (False, False, True, 96, 64, "reduced"),
+    (CADENCE, False, False, 45, 32, "full"),
+    (False, False, False, 480, 512, "wire"),
+    (CADENCE, True, False, 441, 128, "nosub"),
+    (False, False, False, 480, 256, "zero_gains"),
+], ids=["uniform", "ends", "lane_gains", "lane_gains_delays_ends",
+        "4101_lanes", "short_lane_delays", "short_ends", "wire", "nosub",
+        "zero_gains"])
+def test_tail_kernel_equals_plain(chain, sched, gain_lane, dly_lane, T, B,
+                                  mode):
+    """The segment tail kernel against its plain version on the card, word
+    for word: peaks (a NaN for a NaN: a lane's peak over NaNs of two
+    payloads is one of them, as torch's amax picks it), s24 sums, the sub's
+    Q28, the new rings, and the planes asked for (emit 'full': the delayed
+    outputs and the s24 words; the wire: the words).  Edge samples (float
+    NaN, +-inf, +-0, +-1, out of range, denormal; Q28 INT_MIN, INT_MAX,
+    the s24 rounding edges), edge gains, a muted, a disabled and a
+    delayed-but-disabled output and a pair with both channels off; uniform
+    packets and the 44/45 ends; scalar and per-lane gains and delays;
+    segments of 96 and 45 rows against a 256-row ring; 4,101 lanes; a
+    disabled sub; zero gains.  One launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch.kernels.tail_cuda import (segment_tail,
+                                                  segment_tail_plain)
+    from test_torch_tail import FLAGS, FLAGS_NOSUB, tail_case
+
+    args, kw, _ = tail_case(chain, sched, gain_lane, dly_lane, T, B,
+                            seed=T + B + gain_lane + 2 * dly_lane,
+                            flags=FLAGS_NOSUB if mode == "nosub" else FLAGS,
+                            ring_len=256)
+    planes, gains, ends, delay, ring = args
+    if mode == "zero_gains":
+        gains = torch.zeros_like(gains)
+        if chain == "float":
+            gains[::2] = -0.0
+    kw.update(sub=mode != "nosub", words=mode == "wire",
+              full=mode in ("full", "nosub"))
+    card = ([v.cuda() for v in planes], gains.cuda(),
+            None if ends is None else ends.cuda(), delay.cuda(), ring.cuda())
+    n0 = LAUNCHES["tail"]
+    got = segment_tail(*card, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tail"] == n0 + 1
+    want = segment_tail_plain(*card, **kw)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k]
+        assert (g is None) == (w is None), k
+        if w is None:
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if k == "peaks" and g.is_floating_point():
+            nan = torch.isnan(g) & torch.isnan(w)
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), k
+            g = torch.where(nan, 0.0, g)
+            w = torch.where(nan, 0.0, w)
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), (k, (g != w).nonzero()[:5].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "contiguous"])
+def test_tail_kernel_refuses(bad):
+    """On the card the wrapper raises, and launches nothing, on planes of
+    mixed devices, a wrong dtype or shape, or non-contiguous planes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch.kernels.tail_cuda import segment_tail
+    from test_torch_tail import tail_case
+
+    args, kw, _ = tail_case("float", False, False, False, 96, 64, seed=2)
+    planes, gains, ends, delay, ring = args
+    planes = [v.cuda() for v in planes]
+    gains, delay, ring = gains.cuda(), delay.cuda(), ring.cuda()
+    if bad == "device":
+        planes[3] = planes[3].cpu()
+    elif bad == "dtype":
+        gains = gains.double()
+    elif bad == "shape":
+        planes[1] = planes[1][:, :-1].contiguous()
+    else:
+        planes[2] = planes[2].t().contiguous().t()
+    n0 = LAUNCHES["tail"]
+    with pytest.raises((TypeError, ValueError)):
+        segment_tail(planes, gains, ends, delay, ring, **kw)
+    assert LAUNCHES["tail"] == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("platform", ["rp2350", "rp2040"])
+def test_engine_segment_launches_the_tail_once(platform):
+    """One segment of each chain's headline configuration through Engine
+    on the card: LAUNCHES["tail"] grows by exactly 1 and the Q15 gain's by
+    0; against the same segment on the CPU, the Q28 chain's outputs and
+    state word for word, the float chain's out and s24 within 1e-6
+    relative RMS, peaks within 1 LSB and clip flags equal (the float
+    chain's card-vs-CPU budget: the block products round in another order
+    on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine
+    from dspi_tpu_torch.configs import full_chain_config
+
+    plat = Platform.RP2040 if platform == "rp2040" else Platform.RP2350
+    B = 64
+    engs = [Engine(full_chain_config(plat), B, emit="full", device=d)
+            for d in ("cuda", "cpu")]
+    # 16 packets: past the leveller's 480-sample lookahead, so the outputs
+    # are not silent
+    x = np.random.default_rng(25).integers(
+        -16000, 16000, size=(16, 2, 48, B)).astype(np.int32)
+    n0 = dict(LAUNCHES)
+    gpu = engs[0].process(x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tail"] - n0.get("tail", 0) == 1
+    assert LAUNCHES["q15_gain"] - n0.get("q15_gain", 0) == 0
+    cpu = engs[1].process(x)
+    assert set(gpu) == set(cpu)
+    if plat == Platform.RP2040:
+        for key in cpu:
+            assert torch.equal(gpu[key].cpu(), cpu[key]), key
+        for f, a, b in zip(engs[1].state._fields, engs[0].state,
+                           engs[1].state):
+            assert a is None or torch.equal(a.cpu(), b), f
+    else:
+        for key in ("out", "s24"):
+            assert cpu[key].ne(0).any(), key
+            err = _rel_rms(gpu[key].cpu(), cpu[key])
+            assert err < 1e-6, (key, err)
+        assert (gpu["peaks"].cpu() - cpu["peaks"]).abs().max() <= 1
+        assert torch.equal(engs[0].state.clip_flags.cpu(),
+                           engs[1].state.clip_flags)

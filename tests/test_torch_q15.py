@@ -20,6 +20,7 @@ from dspi_tpu_torch.golden import qref
 from dspi_tpu_torch.kernels import LAUNCHES
 from dspi_tpu_torch.kernels.q15_cuda import (q15_gain, q15_gain_plain,
                                              q15_mix, q15_mix_plain)
+from dspi_tpu_torch.kernels.tail_cuda import segment_tail
 from dspi_tpu_torch.params.types import Crosspoint
 
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
@@ -213,6 +214,18 @@ def _parent_gain(x, gain, ends=None):
     return qmath.q15_mul(x, torch.repeat_interleave(gain, reps, dim=0))
 
 
+def _parent_tail(planes, gains, ends=None, delay=None, ring=None, **kw):
+    """The segment tail with its output gains as the chain ran them before
+    the tail kernel, one ``_parent_gain`` a live unmuted output, and the
+    rest of the tail at unit Q15 gains (fast_mul_q15(x, 32768) == x for
+    every int32 x)."""
+    planes = [_parent_gain(x, g, ends) if on and not mute else x
+              for x, g, on, mute in zip(planes, gains, kw["enabled"],
+                                        kw["muted"])]
+    return segment_tail(planes, torch.full_like(gains, 32768), ends, delay,
+                        ring, **kw)
+
+
 def _cfg(kind, i=0):
     cfg = (full_chain_config(Platform.RP2040, 44100.0) if kind == "sched"
            else hetero_variants(2, Platform.RP2040)[i] if kind == "hetero"
@@ -242,8 +255,9 @@ def _segments(kind):
     """Two segments of the path through the wrappers and two through the
     parent's products, on the same inputs: (outputs, states, wrapper
     calls a segment, the static chain, the mix's gains' rank).  Only the
-    Q15 products are swapped: both sides compute the outputs' float gains
-    in the same batched [nout, Npkt, 1|B] pass.  That pass is held to the
+    Q15 products are swapped (the output gains' inside the segment tail,
+    ``_parent_tail``): both sides compute the outputs' float gains in the
+    same batched [nout, Npkt, 1|B] pass.  That pass is held to the
     JAX engine's per-output gains by test_torch_q28.py
     (``test_q28_engine_matches_jax_engine``), test_torch_schedule.py
     (``test_engine_44k1_matches_jax``) and test_torch_grouped.py
@@ -255,24 +269,24 @@ def _segments(kind):
     runs, calls, ranks = [], [], []
     for parent in (False, True):
         eng = _path(kind)
-        mix, gain = ((_parent_mix, _parent_gain) if parent
-                     else (q15_mix, q15_gain))
+        mix, tail = ((_parent_mix, _parent_tail) if parent
+                     else (q15_mix, segment_tail))
 
         def counted_mix(bl, br, gains, enabled, mix=mix):
             calls.append("mix")
             ranks.append(gains.dim())
             return mix(bl, br, gains, enabled)
 
-        def counted_gain(x, g, ends=None, gain=gain):
-            calls.append("gain")
-            return gain(x, g, ends)
+        def counted_tail(*a, tail=tail, **kw):
+            calls.append("tail")
+            return tail(*a, **kw)
 
-        saved = pipeline.q15_mix, pipeline.q15_gain
-        pipeline.q15_mix, pipeline.q15_gain = counted_mix, counted_gain
+        saved = pipeline.q15_mix, pipeline.segment_tail
+        pipeline.q15_mix, pipeline.segment_tail = counted_mix, counted_tail
         try:
             outs = [eng.process(x) for x in xs]
         finally:
-            pipeline.q15_mix, pipeline.q15_gain = saved
+            pipeline.q15_mix, pipeline.segment_tail = saved
         runs.append((outs, eng.state))
     static = eng.static
     return runs, calls[:len(calls) // 2], static, ranks[0]
@@ -285,7 +299,8 @@ def test_segment_through_wrappers_equals_parent(kind):
     with their own matrices: per-lane mix and gain gains) through the
     wrappers: every output and state word equal to the per-product form
     of the Q15 products (``_segments`` says what covers the float gains),
-    one mix call and one gain call a live unmuted output a segment."""
+    one mix call and one segment tail call a segment, the tail gaining
+    each live unmuted output."""
     runs, calls, st, rank = _segments(kind)
     (got, got_st), (want, want_st) = runs
     for w, g in zip(want, got):
@@ -298,5 +313,5 @@ def test_segment_through_wrappers_equals_parent(kind):
     gains = [o for o in range(st.n_outputs)
              if st.output_enabled[o] and not st.output_mute[o]]
     assert gains == ([0, 3, 4] if kind == "gated" else [0, 1, 2, 3, 4])
-    assert calls == (["mix"] + ["gain"] * len(gains)) * 2
+    assert calls == ["mix", "tail"] * 2
     assert rank == (3 if kind == "hetero" else 2)

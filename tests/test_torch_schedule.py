@@ -33,6 +33,7 @@ from dspi_tpu_torch import Platform
 from dspi_tpu_torch.chain import Engine, packet_geometry, pipeline
 from dspi_tpu_torch.configs import full_chain_config
 from dspi_tpu_torch.core import packets
+from dspi_tpu_torch.kernels import tail_cuda
 from dspi_tpu_torch.params import types as program_types
 
 from test_torch_multi import assert_state_matches_jax
@@ -218,9 +219,10 @@ def test_packet_geometry_matches_jax(rate, n):
 @pytest.mark.parametrize("sched", [(48,) * 4, ((44,) * 9 + (45,)) * 2,
                                    (44, 45) * 3, (44, 1, 45, 7)])
 def test_schedule_helpers_match_jax(sched):
-    """_pattern_len, _pkts_to_flat and _per_packet give the JAX package's
-    words (the port gathers where the JAX package reshapes periodic
-    schedules)."""
+    """_pattern_len, _pkts_to_flat and the segment tail's per-packet
+    broadcast (``tail_cuda.per_packet``, from the packet ends) give the JAX
+    package's words (the port gathers where the JAX package reshapes
+    periodic schedules)."""
     s = np.asarray(sched, np.int64)
     ttot = int(s.sum())
     assert packets._pattern_len(s) == jpipeline._pattern_len(s)
@@ -233,7 +235,9 @@ def test_schedule_helpers_match_jax(sched):
     for width in (1, 3):
         vals = arr[:, 0, :width].copy()
         np.testing.assert_array_equal(
-            pipeline._per_packet(torch.from_numpy(vals), s, ttot).numpy(),
+            tail_cuda.per_packet(
+                torch.from_numpy(vals),
+                torch.from_numpy(np.cumsum(s).astype(np.int32)), ttot).numpy(),
             np.asarray(jpipeline._per_packet(jnp.asarray(vals), s, ttot)))
 
 

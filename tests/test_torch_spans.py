@@ -107,11 +107,10 @@ def test_each_segment_emits_its_span_tree_once(path):
         assert q15 == []
     else:
         # volume staging two, the matrix mix one (all live outputs in
-        # one kernel call), one an output gain
-        live = [o for o in range(st.n_outputs) if st.output_enabled[o]]
-        gains = [o for o in live if not st.output_mute[o]]
-        assert len(q15) == NSEG * (2 + 1 + len(gains))
-        assert set(q15) == {"dspi.unpack", "dspi.outputs", "dspi.tail"}
+        # one kernel call); the output gains' Q15 products are the segment
+        # tail's, inside dspi.tail, and open no span of their own
+        assert len(q15) == NSEG * (2 + 1)
+        assert set(q15) == {"dspi.unpack", "dspi.outputs"}
     scan = [n for n, _ in tree if n in SCAN_SPANS]
     assert len(tree) == (NSEG * (len(top) + len(PHASES)) + len(q15)
                          + len(scan) + 1)
