@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core import constants as C
+from ..runtime.telemetry import upload
 from .pack import SKIP, TDF2, StaticChain
 
 
@@ -83,7 +84,9 @@ def _scatter_states(state, bands, finals):
             bs.append(band)
             vs.append(row)
     for f, (cs, bs, vs) in groups.items():
-        getattr(state, f)[cs, bs] = torch.stack(vs)
+        arr = getattr(state, f)
+        arr.index_put_((upload(cs, arr.device), upload(bs, arr.device)),
+                       torch.stack(vs))
     return state
 
 
@@ -156,7 +159,9 @@ def scatter(lay: Cascades, st, sF):
     """Write a call's final states ``sF`` [G, nr, B] back into ``st``: the
     loudness shelves', then every band's, one indexed write an array."""
     if lay.n_pre:
-        st = st._replace(loud_a=sF[:, [0, 2]], loud_b=sF[:, [1, 3]])
+        st = st._replace(
+            loud_a=sF.index_select(1, upload([0, 2], sF.device)),
+            loud_b=sF.index_select(1, upload([1, 3], sF.device)))
     return _scatter_states(
         st, [t for bands in lay.bands for t in bands],
         [f for k in range(len(lay.bands)) for f in _finals(lay, k, sF[k])])

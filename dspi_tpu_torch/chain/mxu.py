@@ -95,7 +95,7 @@ from ..core.packets import _pattern_len, _pkts_to_flat
 from ..kernels.carry_cuda import carry, env_carry
 from ..kernels.eq_f32 import band_step_f32 as _band_step_f32
 from ..kernels.eq_f32 import svf_general_f32 as _svf_general_f32
-from ..runtime.telemetry import span
+from ..runtime.telemetry import span, upload
 from . import layout
 from .layout import _chain_structure
 
@@ -223,9 +223,8 @@ def sched_layout(static, n_packets: int, lti: bool = False) -> Layout:
 @functools.lru_cache(maxsize=None)
 def _pad_index(lay_key, device):
     lay = _layout(*lay_key)
-    return (torch.from_numpy(lay.pad_idx.reshape(-1)).to(device),
-            torch.from_numpy(lay.pad_mask[:, :, None].astype(np.float32))
-            .to(device))
+    return (upload(lay.pad_idx.reshape(-1), device),
+            upload(lay.pad_mask[:, :, None].astype(np.float32), device))
 
 
 def _to_packets(x_flat, lay: Layout):
@@ -424,11 +423,10 @@ def env_packet_ends(static, p, st, bl, br, Npkt):
     else:
         with span("dspi.sched"):
             sizes = sorted({int(n) for n in sched})
-            which = torch.from_numpy(np.searchsorted(sizes, sched)).to(
-                a.device)
+            which = upload(np.searchsorted(sizes, sched), a.device)
             w = torch.stack([w_for(n) for n in sizes]).index_select(0, which)
             y2l, y2r = (_to_packets(v, lay) for v in (bl, br))
-            aT = pw.index_select(0, torch.from_numpy(sched - 1).to(a.device))
+            aT = pw.index_select(0, upload(sched - 1, a.device))
     if a.dim():                          # per-lane weights
         cl = (w * (y2l * y2l)).sum(dim=1)
         cr = (w * (y2r * y2r)).sum(dim=1)
@@ -498,45 +496,49 @@ def chain_b(static, p, blocks: Blocks, st, bl, br, out_bands, Npkt,
     Tmax = lay.tmax
 
     if blocks.xf is not None:
-        s0 = torch.stack([st.xf_lp[0], st.xf_lp[1], st.xf_ap[0],
-                          st.xf_ap[1]])
-        x2 = torch.cat([_to_packets(bl, lay), _to_packets(br, lay)], dim=1)
-        sF, y = _apply_blocked(blocks.xf, lay, x2, s0, groups)
-        del x2
-        st = st._replace(xf_lp=sF[0:2].clone(), xf_ap=sF[2:4].clone())
-        bl = _to_flat(y[:, :Tmax], lay)
-        br = _to_flat(y[:, Tmax:], lay)
-        del y
+        with span("dspi.xf"):
+            s0 = torch.stack([st.xf_lp[0], st.xf_lp[1], st.xf_ap[0],
+                              st.xf_ap[1]])
+            x2 = torch.cat([_to_packets(bl, lay), _to_packets(br, lay)],
+                           dim=1)
+            sF, y = _apply_blocked(blocks.xf, lay, x2, s0, groups)
+            del x2
+            st = st._replace(xf_lp=sF[0:2].clone(), xf_ap=sF[2:4].clone())
+            bl = _to_flat(y[:, :Tmax], lay)
+            br = _to_flat(y[:, Tmax:], lay)
+            del y
 
     # matrix mix (usb_audio.c:751-779): which gains are nonzero is part of
     # the parameter set (Blocks.mix; with groups, nonzero in any group: a
     # zero gain then adds a zero product), the gains stay on the device
     bufs = []
-    for o in range(nout):
-        use_l, use_r = blocks.mix[o]
-        if not static.output_enabled[o] or not (use_l or use_r):
-            bufs.append(torch.zeros_like(bl))
-            continue
-        gl, gr = p.matrix_gain[0, o], p.matrix_gain[1, o]
-        if use_l and use_r:
-            bufs.append(bl * gl + br * gr)
-        elif use_l:
-            bufs.append(bl * gl)
-        else:
-            bufs.append(br * gr)
+    with span("dspi.mix"):
+        for o in range(nout):
+            use_l, use_r = blocks.mix[o]
+            if not static.output_enabled[o] or not (use_l or use_r):
+                bufs.append(torch.zeros_like(bl))
+                continue
+            gl, gr = p.matrix_gain[0, o], p.matrix_gain[1, o]
+            if use_l and use_r:
+                bufs.append(bl * gl + br * gr)
+            elif use_l:
+                bufs.append(bl * gl)
+            else:
+                bufs.append(br * gr)
     del bl, br
 
     if out_bands:
-        cas = layout.output_cascades(out_bands)
-        s0 = layout.states(cas, st)                       # [Go, S_max, B]
-        x_g = torch.stack([_to_packets(bufs[o], lay) for o in cas.keys],
-                          dim=1)                          # [Npkt, Go, T, B]
-        sF, y = _apply_blocked(blocks.out, lay, x_g, s0, groups)
-        del x_g
-        for gi, o in enumerate(cas.keys):
-            bufs[o] = _to_flat(y[:, gi], lay)
-        del y
-        st = layout.scatter(cas, st, sF)
+        with span("dspi.out_eq"):
+            cas = layout.output_cascades(out_bands)
+            s0 = layout.states(cas, st)                   # [Go, S_max, B]
+            x_g = torch.stack([_to_packets(bufs[o], lay) for o in cas.keys],
+                              dim=1)                      # [Npkt, Go, T, B]
+            sF, y = _apply_blocked(blocks.out, lay, x_g, s0, groups)
+            del x_g
+            for gi, o in enumerate(cas.keys):
+                bufs[o] = _to_flat(y[:, gi], lay)
+            del y
+            st = layout.scatter(cas, st, sF)
     return st, bufs
 
 

@@ -65,7 +65,7 @@ from ..kernels.pdm_cuda import pdm_segment
 from ..kernels.q15_cuda import q15_mix
 from ..kernels.tail_cuda import segment_tail
 from ..kernels.xf_cuda import xf_f32, xf_q28
-from ..runtime.telemetry import span
+from ..runtime.telemetry import span, upload
 from . import layout, mxu
 from .layout import _chain_structure
 from .pack import SKIP, StaticChain
@@ -86,7 +86,7 @@ def _packet_ends(static: StaticChain, sched, dev):
     if not static.schedule:
         return None
     with span("dspi.sched"):
-        return torch.from_numpy(np.cumsum(sched).astype(np.int32)).to(dev)
+        return upload(np.cumsum(sched).astype(np.int32), dev)
 
 
 def _leveller(static: StaticChain, p, st, bl, br, env_l, env_r, Ttot, ends):
@@ -323,25 +323,27 @@ def _f32_outputs(static: StaticChain, p, st, bl, br, out_bands, sched):
     scan B as one float cascade call over the live outputs.  Returns (st',
     bufs, one [Ttot, B] tensor an output)."""
     if static.crossfeed_on:
-        with span("dspi.xf_f32"):
+        with span("dspi.xf"):
             bl, br, s4 = xf_f32(bl.contiguous(), br.contiguous(), p.xf,
                                 torch.cat([st.xf_lp, st.xf_ap]))
             st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
     bufs = []
-    for o in range(static.n_outputs):
-        if not static.output_enabled[o]:
-            bufs.append(torch.zeros_like(bl))
-            continue
-        gl, gr = p.matrix_gain[0, o], p.matrix_gain[1, o]
-        pl, pr = bl * gl, br * gr
-        bufs.append(torch.where(
-            (gl != 0.0) & (gr != 0.0), pl + pr,
-            torch.where(gl != 0.0, pl,
-                        torch.where(gr != 0.0, pr, torch.zeros_like(pr)))))
-        del pl, pr
+    with span("dspi.mix"):
+        for o in range(static.n_outputs):
+            if not static.output_enabled[o]:
+                bufs.append(torch.zeros_like(bl))
+                continue
+            gl, gr = p.matrix_gain[0, o], p.matrix_gain[1, o]
+            pl, pr = bl * gl, br * gr
+            bufs.append(torch.where(
+                (gl != 0.0) & (gr != 0.0), pl + pr,
+                torch.where(gl != 0.0, pl,
+                            torch.where(gr != 0.0, pr,
+                                        torch.zeros_like(pr)))))
+            del pl, pr
     if not out_bands:
         return st, bufs
-    with span("dspi.f32_cascade"):
+    with span("dspi.out_eq"), span("dspi.f32_cascade"):
         st = _f32_outeq(static, p, st, bufs, out_bands, sched)
     return st, bufs
 
@@ -393,7 +395,7 @@ def process_float(static: StaticChain, p, state, x, preset_mute=None, *,
     Returns (state', outputs) as the JAX package's ``_process_float``: the
     input state is not modified.  With a schedule, emit='full' outputs are
     time-flat ([K, Ttot, B])."""
-    with span("dspi.segment"):
+    with span("dspi.segment", x.device):
         if static.mxu and blocks is None:
             raise ValueError("the block-matmul lowering needs its block "
                              "matrices (blocks=mxu.build_blocks(...))")
@@ -493,8 +495,7 @@ def _q28_rows(p, bands, nb, lane, B, dev, prefix):
     config-uniform row (the identity, a collapsed leaf of
     ``build_params_multi``) broadcasts over the lanes."""
     rows = list(prefix) + [p.eq_q28[c, band][None] for c, band, _k in bands]
-    rows += [torch.tensor([_IDENT_Q28], dtype=_I32, device=dev)] * (
-        nb - len(bands))
+    rows += [upload([_IDENT_Q28], dev, _I32)] * (nb - len(bands))
     if lane:
         rows = [r.unsqueeze(-1).expand(*r.shape, B) if r.dim() == 2 else r
                 for r in rows]
@@ -577,7 +578,7 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
 
     Returns (state', outputs); the input state is not modified.  With a
     schedule, emit='full' outputs are time-flat ([K, Ttot, B])."""
-    with span("dspi.segment"):
+    with span("dspi.segment", x.device):
         x2, sched, Npkt, Ttot = _segment_layout(static, x)
         nout = static.n_outputs
         dev = x.device
@@ -626,20 +627,25 @@ def process_q28(static: StaticChain, p, state, x, preset_mute=None, *,
             peak_ml = bl.abs().amax(dim=0)
             peak_mr = br.abs().amax(dim=0)
             if static.crossfeed_on:
-                bl, br, s4 = xf_q28(bl.contiguous(), br.contiguous(), p.xf,
-                                    torch.cat([st.xf_lp, st.xf_ap]))
-                st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
+                with span("dspi.xf"):
+                    bl, br, s4 = xf_q28(bl.contiguous(), br.contiguous(),
+                                        p.xf, torch.cat([st.xf_lp, st.xf_ap]))
+                    st = st._replace(xf_lp=s4[:2], xf_ap=s4[2:])
 
             # ---- PASS 4: matrix (usb_audio.c:1075-1100), every enabled
             # output in one Q15 kernel launch.  q15_mul(x, 0) == 0, so the
             # firmware's branches on zero gains all come to this sum ----
-            bufs = q15_mix(bl.contiguous(), br.contiguous(),
-                           p.matrix_gain.contiguous(), static.output_enabled)
+            with span("dspi.mix"):
+                bufs = q15_mix(bl.contiguous(), br.contiguous(),
+                               p.matrix_gain.contiguous(),
+                               static.output_enabled)
             del bl, br
 
             # ---- PASS 5: per-output EQ ----
             if out_bands:
-                st, bufs = _q28_outeq(static, p, st, bufs, out_bands, sched)
+                with span("dspi.out_eq"):
+                    st, bufs = _q28_outeq(static, p, st, bufs, out_bands,
+                                          sched)
 
         with span("dspi.tail"):
             # output gains (usb_audio.c:1203-1212): the float multiply,

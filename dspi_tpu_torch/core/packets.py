@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime.telemetry import upload
+
 
 def _ramp_indices(sched):
     """(t_within_packet, packet) index pair for every flat sample."""
@@ -32,5 +34,5 @@ def _pkts_to_flat(arr, sched, Ttot):
     if _pattern_len(sched) == 1:
         return arr.reshape((Ttot,) + arr.shape[2:])
     tt, kk = _ramp_indices(sched)
-    idx = torch.from_numpy(kk * arr.shape[1] + tt).to(arr.device)
+    idx = upload(kk * arr.shape[1] + tt, arr.device)
     return arr.reshape((-1,) + arr.shape[2:]).index_select(0, idx)

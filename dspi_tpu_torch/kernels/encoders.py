@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core import constants as C
+from ..runtime.telemetry import upload
 
 _I32 = torch.int32
 
@@ -97,8 +98,8 @@ def spdif_frame_headers(block_pos: torch.Tensor, sample_rate: int = 48000):
     block_pos: int tensor of frame indices (taken modulo 192).
     Returns (l_L, h_L, l_R, h_R) int32 tensors of its shape."""
     pos = (block_pos % C.SPDIF_BLOCK_FRAMES).to(torch.int64)
-    bits = torch.from_numpy(channel_status_bits(sample_rate).astype(
-        np.int32)).to(pos.device)
+    bits = upload(channel_status_bits(sample_rate).astype(np.int32),
+                  pos.device)
     c_bit = bits[pos]
     l_L = torch.where(pos == 0, C.SPDIF_PREAMBLE_Z,
                       C.SPDIF_PREAMBLE_X).to(_I32)
@@ -123,7 +124,7 @@ def _tables_np() -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_tables_np()).to(device)
+    return upload(_tables_np(), device)
 
 
 def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

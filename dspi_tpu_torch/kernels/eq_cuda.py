@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from ..runtime.telemetry import span
+from ..runtime.telemetry import span, upload
 from . import LAUNCHES, build
 from .eq import check_cascade_args, packet_ends, q28_cascades_plain
 
@@ -45,7 +45,7 @@ def launch(fn, x, cf, s0, scal, *, nb, has_loud=False, has_env=False,
     ends_t = None
     if has_env and sched:
         with span("dspi.sched"):
-            ends_t = torch.tensor(ends, dtype=_I32, device=x.device)
+            ends_t = upload(ends, x.device, _I32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), cf.data_ptr(), s0.data_ptr(), scal.data_ptr(),

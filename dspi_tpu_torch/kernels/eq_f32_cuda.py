@@ -22,6 +22,7 @@ from pathlib import Path
 import torch
 
 from ..core import constants as C
+from ..runtime.telemetry import upload
 from . import LAUNCHES, build
 from .eq import packet_ends
 from .eq_f32 import check_f32_args, f32_cascades_plain
@@ -115,8 +116,7 @@ def _ends_on(T: int, tc: int, sched, device) -> torch.Tensor:
     """The packet ends as the kernel reads them, then a sentinel T, on
     ``device`` (kept: the paths call with the same geometry every
     segment)."""
-    return torch.tensor(packet_ends(T, tc, sched) + (T,), dtype=_I32,
-                        device=device)
+    return upload(packet_ends(T, tc, sched) + (T,), device, _I32)
 
 
 def launch(libs: dict, plan, x, cf, s0, scal, *, has_env=False, tc=48,
@@ -135,7 +135,7 @@ def launch(libs: dict, plan, x, cf, s0, scal, *, has_env=False, tc=48,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     for sig, idx in plan:
         groups = (None if len(idx) == G else
-                  torch.tensor(idx, dtype=_I32, device=x.device))
+                  upload(idx, x.device, _I32))
         with torch.cuda.device(x.device):
             rc = bind(libs[sig])(
                 sig, x.data_ptr(), cf.data_ptr(), s0.data_ptr(),

@@ -6,6 +6,12 @@ host that has only PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1291,3 +1297,193 @@ def test_engine_segment_launches_the_tail_once(platform):
         assert (gpu["peaks"].cpu() - cpu["peaks"]).abs().max() <= 1
         assert torch.equal(engs[0].state.clip_flags.cpu(),
                            engs[1].state.clip_flags)
+
+
+# ------------------------------------------------------- the spans' record
+
+def _record_engines(path, B=8192, npkt=16):
+    """Two engines of ``path`` on the card, emit "reduced" with the PDM
+    sub, as the benchmark's cells run them, and a segment's input."""
+    from dspi_tpu_torch import Platform
+    from dspi_tpu_torch.chain import Engine, packet_geometry
+    from dspi_tpu_torch.configs import full_chain_config
+
+    plat = Platform.RP2040 if path == "q28" else Platform.RP2350
+    rate = 44100.0 if path == "float_44k1" else 48000.0
+    block, sched = packet_geometry(rate, npkt)
+    engs = [Engine(full_chain_config(plat, rate), B, block_size=block,
+                   schedule=sched, emit="reduced", mxu=path != "float_scan",
+                   device="cuda") for _ in range(2)]
+    shape = (2, sum(sched), B) if sched else (npkt, 2, block, B)
+    x = torch.randint(-16000, 16000, shape, dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(26)).cuda()
+    return engs, x
+
+
+SLACK_MS = 0.02                 # about two launch latencies
+
+
+def _span_device(prof, tr):
+    """({span: [device ms, idle ms]}, lag us, lost) over the window of
+    ``tr`` (a
+    ``benchmark.spans`` trace of ``prof``): the device time of the
+    operations whose launch lies inside an instance of the span, nested
+    spans included, and the idle time (no device operation running) from
+    each instance's entry to the later of its exit and the end of the last
+    operation it launched, which its two CUDA events span with its
+    operations; the least time from a launch call to the start of its
+    operation, below 0 where the profile's device clock runs ahead of its
+    host clock (then its operations sit too early against the spans); and
+    the memcpy calls in the window whose operation the profile holds no
+    record of."""
+    from torch.autograd import DeviceType
+
+    from benchmark import spans, trace
+
+    launch, ids, copies = {}, [], []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            if not spans._span(ev.name):
+                ids.append(ev.id)
+        elif ev.name.startswith(spans.RUNTIME):
+            launch[ev.id] = float(ev.time_range.start)
+            if "Memcpy" in ev.name and tr.w0 <= launch[ev.id] < tr.w1:
+                copies.append(ev.id)
+    lost = len(set(copies) - set(ids))
+    ops = [(launch.get(i, -1.0), max(s, tr.w0), min(e, tr.w1))
+           for (_, s, e), i in zip(tr.device, ids)
+           if e > tr.w0 and s < tr.w1]
+    busy = trace.union([(s, e) for _, s, e in ops])
+    lag = min((s - t for t, s, _ in ops if t >= 0), default=0.0)
+
+    def idle(a, b):
+        return (b - a) - sum(max(0.0, min(e, b) - max(s, a))
+                             for s, e in busy)
+
+    out: dict = {}
+    for n, a, b in tr.host:
+        if n.startswith(spans.PROGRAM_PREFIX):
+            mine = [(s, e) for t, s, e in ops if a <= t < b]
+            r = out.setdefault(n, [0.0, 0.0])
+            r[0] += 1e-3 * sum(e - s for s, e in mine)
+            r[1] += 1e-3 * idle(a, max([b] + [e for _, e in mine]))
+    return out, lag, lost
+
+
+def _compare(prof, tr, summaries: list) -> dict:
+    """The record's ``summaries`` (those of the segments in ``tr``'s
+    window) against the profile: per span, [record uploads, the ``Memcpy
+    HtoD`` operations ``benchmark.spans`` gives it], and the profile's
+    uploads launched in no program span or with no launch found; for
+    each span with device seconds, [record ms, device ms, device + idle
+    ms, within], where within: the record's ms in [device ms, device +
+    idle ms] to ``SLACK_MS`` an instance; and the profile's lag and lost
+    copies (``_span_device``)."""
+    from benchmark import spans
+
+    table = {row[0]: row for row in spans.span_table(tr)}
+    rec: dict = {}
+    for summ in summaries:
+        for n, e in summ.items():
+            r = rec.setdefault(n, [0, 0.0, e["device_s"] is not None])
+            r[0] += e["uploads"]
+            r[1] += e["device_s"] or 0.0
+    ups = {n: [rec.get(n, [0])[0], table[n][5] if n in table else 0]
+           for n in set(rec) | {n for n in table
+                                if n.startswith(spans.PROGRAM_PREFIX)}}
+    inst = {}
+    for n, _, _ in tr.host:
+        inst[n] = inst.get(n, 0) + 1
+    span_dev, lag, lost = _span_device(prof, tr)
+    dev = {}
+    for n, (lo, idle) in span_dev.items():
+        if n in rec and rec[n][2]:
+            ms, pad = 1e3 * rec[n][1], SLACK_MS * inst[n]
+            dev[n] = [ms, lo, lo + idle, lo - pad <= ms <= lo + idle + pad]
+    outside = {n: table[n][5] for n in (spans.HOST, spans.UNLINKED)
+               if n in table and table[n][5]}
+    return {"uploads": ups, "uploads_outside": outside,
+            "uploads_per_seg": [sum(v[i] for v in ups.values())
+                                / max(len(summaries), 1) for i in (0, 1)],
+            "device": dev, "lag_us": lag, "lost_copies": lost}
+
+
+def _record_check(path, tries=6) -> dict:
+    """A segment of ``path`` under the profiler, as the benchmark's traced
+    step profiles it, until the profile is whole (it holds the operation
+    of every memcpy call it saw, and its clocks agree: its lag is not
+    below 0; at most ``tries`` segments): ``_compare`` of the record and
+    that profile, the segments it took, and whether the outputs and state
+    are word for word those of the same segments with no profiler."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from benchmark import spans, trace
+    from dspi_tpu_torch.runtime import telemetry
+
+    (plain, traced), x = _record_engines(path)
+    for eng in (plain, traced):
+        eng.process(x)
+    for k in range(1, tries + 1):
+        want = plain.process(x ^ k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(trace.WINDOW):
+                got = traced.process(x ^ k)
+                torch.cuda.synchronize()
+        tr = spans.extend(trace.from_profiler(prof, 1), prof)
+        cmp = _compare(prof, tr, telemetry.record(1))
+        if cmp["lag_us"] >= 0 and cmp["lost_copies"] == 0:
+            break
+    same = set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                         for k in want)
+    for a, b in zip(plain.state, traced.state):
+        same = same and (a is None) == (b is None) and (
+            a is None or torch.equal(a, b))
+    return {**cmp, "segments": k, "words_equal": same}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float_block", "float_scan", "q28",
+                                  "float_44k1"])
+def test_the_record_matches_the_profile(path):
+    """Segments of each path under the profiler, in a process of their own
+    as the benchmark's traced run is (after the file's other card tests a
+    profile in the same process drops the device records of the window's
+    first ~2 ms, its first memcpys and kernels, while it keeps their
+    launch calls; a fresh process's profile drops a copy's now and then):
+    on a profile that holds every copy it saw launched, and whose
+    operations none starts before its launch call, the record's uploads
+    in each span equal the ``Memcpy HtoD`` operations ``benchmark.spans``
+    gives that span; the device seconds of ``dspi.mix``, ``.unpack`` and ``.wire`` lie between the
+    device ms of the operations launched inside the span and that plus
+    the idle ms between its entry and the later of its exit and the end
+    of its last operation, to ``SLACK_MS`` (``_compare``; on a segment
+    this small the device waits for the host between most launches); and
+    the outputs and state are word for word those of the same segments
+    with no profiler."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the record's device seconds are "
+                    "CUDA events")
+    root = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [v for v in [os.environ.get("PYTHONPATH")] if v])}
+    run = subprocess.run([sys.executable, __file__, "record", path],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=root, env=env)
+    assert run.returncode == 0, run.stderr[-4000:]
+    cmp = json.loads(run.stdout.splitlines()[-1])
+    whole = (cmp["lag_us"], cmp["lost_copies"])
+    assert whole[0] >= 0 and whole[1] == 0, whole
+    assert cmp["uploads_per_seg"][0] > 0
+    bad = {n: v for n, v in cmp["uploads"].items() if v[0] != v[1]}
+    assert bad == {}, f"{bad} {cmp['uploads_outside']}"
+    for name in ("dspi.mix", "dspi.unpack", "dspi.wire"):
+        assert cmp["device"][name][3], (name, cmp["device"][name])
+    assert cmp["words_equal"]
+
+
+if __name__ == "__main__":
+    # the record's check in a process of its own: record <path>
+    if sys.argv[1:2] == ["record"]:
+        print(json.dumps(_record_check(sys.argv[2])))
